@@ -1,0 +1,563 @@
+"""Batched distance + top-k over a device-resident packed matrix (PyTorch
+port of ``helix_tpu/ops/distance.py``).
+
+Two phases, as in the reference: a coarse bf16 scan that picks
+``rerank * k`` candidates per query (:func:`topk_resident`, plain torch
+ops; or the fused Hopper kernel through :func:`resident_topk_auto`),
+then an exact f32 re-rank of those candidates on the device.  The
+re-rank runs with TF32 off (:func:`require_fp32_matmul`), so
+``$distance`` is a true f32 value as in the reference.
+
+Deliberate differences from the reference:
+
+- ``approx_max_k`` becomes an exact top-k; :func:`_top_k` breaks ties
+  toward the lower index, as ``lax.top_k`` does.
+- ``copy_to_host_async`` becomes a non-blocking copy into pinned host
+  tensors plus a recorded CUDA event that ``finalize`` waits on.
+- ``topk_scores`` (the driver entry point's self-contained search) is
+  not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pick_chunk(n: int, target: int) -> int:
+    """Largest divisor of ``n`` that is <= target."""
+    if n <= target:
+        return n
+    for c in range(target, 0, -1):
+        if n % c == 0:
+            return c
+    return n
+
+
+# [B, N] f32 score-buffer budget for the single-shot coarse phase.
+SINGLE_SHOT_BYTES = 2 << 30
+
+
+def require_fp32_matmul() -> None:
+    """The exact re-rank must be true fp32: TF32 keeps ~3 decimal digits
+    and would move ``$distance`` away from the reference.  Set at every
+    re-rank (process-wide flags, cheap to set)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k along the last axis, descending, ties to the lower
+    index (``lax.top_k``'s rule), so candidate sets match the reference
+    even where bf16 scores tie."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _coarse_dot(qs16: torch.Tensor, xs16: torch.Tensor) -> torch.Tensor:
+    """f32 sums of bf16 products (``preferred_element_type=f32``)."""
+    return qs16.float() @ xs16.float().T
+
+
+def topk_resident(
+    xs16: torch.Tensor,       # [N, D] bf16 resident matrix (coarse phase)
+    xs32: torch.Tensor,       # [N, D] f32 resident matrix (re-rank)
+    qs: torch.Tensor,         # [B, D] f32 query batch
+    n_valid: int,
+    sq_norms: torch.Tensor,
+    *,
+    k: int,
+    metric: str = "cosine",
+    rerank: int = 8,
+    chunk: int = 131072,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over resident device matrices: a bf16 coarse phase picks
+    ``rerank * k`` candidates, then an exact f32 re-rank on the device.
+    Returns ``(dists [B, k], ids [B, k])`` ascending."""
+    n, _ = xs16.shape
+    b = qs.shape[0]
+    k_scan = min(max(k, rerank * k), n)
+    qs16 = qs.to(torch.bfloat16)
+    cols = torch.arange(n, device=xs16.device)
+    if metric == "cosine" and b * n * 2 <= SINGLE_SHOT_BYTES:
+        # Selection-only coarse phase: scores rounded to bf16 (only the
+        # indices matter; the f32 re-rank below re-scores them).
+        sims = _coarse_dot(qs16, xs16).to(torch.bfloat16)
+        sims = torch.where((cols < n_valid)[None, :], sims, -3.0e38)
+        best_s16, best_i = _top_k(sims, k_scan)
+        best_s = best_s16.float()
+        best_s = torch.where(best_s <= -1.0e38, float("-inf"), best_s)
+    elif b * n * 4 <= SINGLE_SHOT_BYTES:
+        sims = _coarse_dot(qs16, xs16)
+        if metric == "l2":
+            sims = 2.0 * sims - sq_norms[None, :]
+        sims = torch.where((cols < n_valid)[None, :], sims, float("-inf"))
+        best_s, best_i = _top_k(sims, k_scan)
+    else:
+        # Chunked scan with a running top-k merge: bounds the [B, chunk]
+        # score buffer.
+        chunk = pick_chunk(n, min(chunk, n))
+        best_s = torch.full((b, k_scan), float("-inf"), device=xs16.device)
+        best_i = torch.zeros((b, k_scan), dtype=torch.int64,
+                             device=xs16.device)
+        for start in range(0, n, chunk):
+            block = xs16[start:start + chunk]
+            sims = _coarse_dot(qs16, block)
+            block_cols = cols[start:start + chunk]
+            if metric == "l2":
+                sims = 2.0 * sims - sq_norms[start:start + chunk][None, :]
+            sims = torch.where(
+                (block_cols < n_valid)[None, :], sims, float("-inf")
+            )
+            s_chunk, i_local = _top_k(sims, k_scan)
+            cat_s = torch.cat([best_s, s_chunk], dim=1)
+            cat_i = torch.cat([best_i, block_cols[i_local]], dim=1)
+            best_s, pos = _top_k(cat_s, k_scan)
+            best_i = torch.gather(cat_i, 1, pos)
+
+    require_fp32_matmul()
+    cand = xs32[best_i]
+    exact = torch.einsum("bkd,bd->bk", cand, qs)
+    if metric == "l2":
+        exact = 2.0 * exact - sq_norms[best_i]
+    exact = torch.where(torch.isfinite(best_s), exact, float("-inf"))
+    best_s, pos = _top_k(exact, k)
+    best_i = torch.gather(best_i, 1, pos)
+
+    if metric == "cosine":
+        dists = 1.0 - best_s
+    else:
+        q_sq = torch.sum(qs * qs, dim=1, keepdim=True)
+        dists = -best_s + q_sq
+    return dists, best_i
+
+
+FUSED_ROW_THRESHOLD = 65536
+
+
+class PackedMatrix:
+    """Host-managed packed vector matrix with cached device copies.
+
+    Rows are appended host-side (amortized growth, the reference's numpy
+    code); the bf16 coarse copy and the f32 re-rank copy on ``device``
+    are refreshed only when stale (version check), so repeated searches
+    never re-upload.  Rows are padded to multiples of ``ROW_PAD`` (to
+    the fused kernel's ``TILE`` for large cosine matrices)."""
+
+    ROW_PAD = 512
+    DIM_PAD = 128
+    # Background growth: past GROW_FILL of capacity, a daemon thread
+    # pre-copies rows into the doubled buffers in COPY_SLICE_ROWS slices
+    # (yielding the GIL between slices), so the single-writer ingest path
+    # never stalls on an O(N) copy.  Overwrites during a pending grow are
+    # tracked and re-copied at swap.
+    GROW_FILL_NUM = 9
+    GROW_FILL_DEN = 10
+    COPY_SLICE_ROWS = 65536
+
+    def __init__(self, dim: int, metric: str = "cosine", *,
+                 device: torch.device | str):
+        self.dim = dim
+        self.metric = metric
+        self.device = torch.device(device)
+        self.dim_pad = _round_up(max(dim, 1), self.DIM_PAD)
+        self.capacity = self.ROW_PAD
+        self.data = np.zeros((self.capacity, self.dim_pad), np.float32)
+        self.sq_norms = np.zeros(self.capacity, np.float32)
+        self.n = 0
+        self.version = 0
+        self._device: tuple[int, torch.Tensor, torch.Tensor] | None = None
+        self._device32: tuple[int, torch.Tensor] | None = None
+        self._grow_thread = None
+        self._grow_buffers: tuple | None = None
+        self._grow_dirty: list[int] = []
+
+    # -- growth (host numpy, as the reference) ------------------------------
+
+    def _start_background_grow(self, target_capacity: int) -> None:
+        import threading
+
+        if self._grow_thread is not None:
+            return
+        n0 = self.n
+        grown = np.zeros((target_capacity, self.dim_pad), np.float32)
+        sq = np.zeros(target_capacity, np.float32)
+        src, src_sq = self.data, self.sq_norms
+        slice_rows = self.COPY_SLICE_ROWS
+        ok = [False]
+
+        def copy() -> None:
+            import time as _time
+
+            for s in range(0, n0, slice_rows):
+                e = min(n0, s + slice_rows)
+                grown[s:e] = src[s:e]
+                _time.sleep(0)  # let serving threads interleave per slice
+            sq[:n0] = src_sq[:n0]
+            ok[0] = True
+
+        self._grow_buffers = (n0, grown, sq, ok)
+        self._grow_dirty = []
+        thread = threading.Thread(
+            target=copy, daemon=True, name="packed-matrix-grow"
+        )
+        self._grow_thread = thread
+        thread.start()
+
+    def _swap_grown(self) -> None:
+        """Join the background copy and install the grown buffers (rows
+        appended or overwritten since the copy started are re-copied).
+        A copier that died without finishing is discarded: the
+        synchronous path in ``_ensure_rows`` grows instead."""
+        thread = self._grow_thread
+        thread.join()
+        n0, grown, sq, ok = self._grow_buffers
+        self._grow_thread = None
+        self._grow_buffers = None
+        if not ok[0]:
+            self._grow_dirty = []
+            return
+        grown[n0 : self.n] = self.data[n0 : self.n]
+        sq[n0 : self.n] = self.sq_norms[n0 : self.n]
+        for pos in self._grow_dirty:
+            if pos < n0:
+                grown[pos] = self.data[pos]
+                sq[pos] = self.sq_norms[pos]
+        self.data = grown
+        self.sq_norms = sq
+        self.capacity = len(sq)
+        self._grow_dirty = []
+
+    def _ensure_rows(self, count: int) -> None:
+        need = self.n + count
+        if self._grow_thread is not None and (
+            need > self.capacity or not self._grow_thread.is_alive()
+        ):
+            self._swap_grown()
+        while need > self.capacity:  # copier outrun (or disabled): grow now
+            self.capacity = max(self.capacity * 2, _round_up(need, self.ROW_PAD))
+            grown = np.zeros((self.capacity, self.dim_pad), np.float32)
+            grown[: self.n] = self.data[: self.n]
+            self.data = grown
+            sq = np.zeros(self.capacity, np.float32)
+            sq[: self.n] = self.sq_norms[: self.n]
+            self.sq_norms = sq
+
+    def _maybe_start_grow(self) -> None:
+        if (
+            self._grow_thread is None
+            and self.n * self.GROW_FILL_DEN > self.capacity * self.GROW_FILL_NUM
+        ):
+            self._start_background_grow(2 * self.capacity)
+
+    def append(self, vec: np.ndarray) -> int:
+        self._ensure_rows(1)
+        row = np.zeros(self.dim_pad, np.float32)
+        row[: self.dim] = vec
+        if self.metric == "cosine":
+            norm = float(np.linalg.norm(row))
+            if norm > 0:
+                row /= norm
+        self.data[self.n] = row
+        self.sq_norms[self.n] = float(np.dot(row, row))
+        pos = self.n
+        self.n += 1
+        self.version += 1
+        self._maybe_start_grow()
+        return pos
+
+    def extend(self, vecs: np.ndarray) -> int:
+        """Bulk append; returns the first assigned position."""
+        count = len(vecs)
+        self._ensure_rows(count)
+        block = np.zeros((count, self.dim_pad), np.float32)
+        block[:, : self.dim] = vecs
+        if self.metric == "cosine":
+            norms = np.linalg.norm(block, axis=1, keepdims=True)
+            np.divide(block, norms, out=block, where=norms > 0)
+        self.data[self.n : self.n + count] = block
+        self.sq_norms[self.n : self.n + count] = np.einsum("nd,nd->n", block, block)
+        first = self.n
+        self.n += count
+        self.version += 1
+        self._maybe_start_grow()
+        return first
+
+    def overwrite(self, pos: int, vec: np.ndarray | None) -> None:
+        """Replace a row (None zeroes it; paired with external tombstoning)."""
+        row = np.zeros(self.dim_pad, np.float32)
+        if vec is not None:
+            row[: self.dim] = vec
+            if self.metric == "cosine":
+                norm = float(np.linalg.norm(row))
+                if norm > 0:
+                    row /= norm
+        self.data[pos] = row
+        self.sq_norms[pos] = float(np.dot(row, row))
+        if self._grow_thread is not None:
+            self._grow_dirty.append(pos)
+        self.version += 1
+
+    # -- device copies -------------------------------------------------------
+
+    def _device_rows(self) -> int:
+        """Device row padding.  Large cosine matrices pad to the fused
+        kernel's tile so its path can engage (<= 8191 junk rows)."""
+        n_rows = _round_up(max(self.n, 1), self.ROW_PAD)
+        if self.metric == "cosine" and self.n >= FUSED_ROW_THRESHOLD:
+            from .fused_topk import pad_rows_for_fused
+
+            n_rows = pad_rows_for_fused(self.n)
+        return n_rows
+
+    # Upload granularity: the f32 host rows go up in slices of this many
+    # bytes and are cast on the device, so the transient device memory
+    # is one slice, not a second full-size f32 copy.
+    UPLOAD_CHUNK_BYTES = 256 << 20
+
+    def _upload(self, host: np.ndarray, n_rows: int,
+                dtype: torch.dtype) -> torch.Tensor:
+        """``[n_rows, ...]`` tensor of ``dtype`` on the device holding the
+        first ``min(n_rows, len(host))`` host rows, zeros past them.
+        Preallocated once, filled slice by slice (cast on the device)."""
+        dst = torch.empty((n_rows,) + host.shape[1:], dtype=dtype,
+                          device=self.device)
+        have = min(n_rows, len(host))
+        row_bytes = max(host[0:1].nbytes, 1)
+        rows = max(1, self.UPLOAD_CHUNK_BYTES // row_bytes)
+        for s in range(0, have, rows):
+            e = min(have, s + rows)
+            dst[s:e].copy_(torch.from_numpy(host[s:e]).to(self.device))
+        if have < n_rows:
+            dst[have:].zero_()
+        return dst
+
+    def device_arrays(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(bf16 matrix, f32 squared norms) on the device, refreshed when
+        stale."""
+        cached = self._device
+        if cached is not None and cached[0] == self.version:
+            return cached[1], cached[2]
+        n_rows = self._device_rows()
+        valid = min(self.n, n_rows)
+        xs16 = self._upload(self.data[:valid], n_rows, torch.bfloat16)
+        sq = self._upload(self.sq_norms[:valid], n_rows, torch.float32)
+        self._device = (self.version, xs16, sq)
+        return xs16, sq
+
+    def release_device(self) -> None:
+        """Drop the cached device copies (bf16 + f32).  Device memory is
+        the scarce resource when several matrices share a card, so
+        callers that finished a device phase release explicitly."""
+        self._device = None
+        self._device32 = None
+
+    def data_device(self) -> torch.Tensor:
+        """Cached f32 device copy (re-rank operand)."""
+        cached = self._device32
+        if cached is not None and cached[0] == self.version:
+            return cached[1]
+        n_rows = _round_up(max(self.n, 1), self.ROW_PAD)
+        xs32 = self._upload(self.data[: self.n], n_rows, torch.float32)
+        self._device32 = (self.version, xs32)
+        return xs32
+
+    def prepare_query(self, q: np.ndarray) -> np.ndarray:
+        out = np.zeros(self.dim_pad, np.float32)
+        out[: self.dim] = q
+        if self.metric == "cosine":
+            norm = float(np.linalg.norm(out))
+            if norm > 0:
+                out /= norm
+        return out
+
+    def prepare_queries(self, qs: np.ndarray) -> np.ndarray:
+        """Vectorized :meth:`prepare_query` over a [B, dim] batch."""
+        qs = np.asarray(qs, np.float32)
+        if qs.ndim != 2:
+            return np.stack([self.prepare_query(q) for q in qs])
+        if qs.shape[1] != self.dim:
+            raise ValueError(
+                f"could not broadcast query batch of dim {qs.shape[1]} "
+                f"into index dim {self.dim}"
+            )
+        out = np.zeros((qs.shape[0], self.dim_pad), np.float32)
+        out[:, : self.dim] = qs
+        if self.metric == "cosine":
+            norms = np.linalg.norm(out, axis=1, keepdims=True)
+            np.divide(out, norms, out=out, where=norms > 0)
+        return out
+
+
+def resident_topk_auto(
+    xs16: torch.Tensor,
+    xs32: torch.Tensor,
+    qs: torch.Tensor,
+    n_valid: int,
+    sq: torch.Tensor,
+    *,
+    k: int,
+    metric: str,
+    rerank: int = 8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Route a resident search: the fused Hopper kernel (CUDA + cosine +
+    fused-padded rows) or :func:`topk_resident` otherwise."""
+    from .fused_topk import fused_topk, supports_fused
+
+    if supports_fused(
+        int(xs16.shape[0]), int(xs16.shape[1]), metric, xs16.device, k=k,
+    ):
+        return fused_topk(xs16, xs32, qs, n_valid, sq, k=k, rerank=rerank)
+    return topk_resident(
+        xs16, xs32, qs, n_valid, sq, k=k, metric=metric, rerank=rerank
+    )
+
+
+def search_packed(
+    matrix: PackedMatrix,
+    queries: np.ndarray,      # [B, dim] raw queries
+    k: int,
+    valid_mask: np.ndarray | None = None,   # [n] bool over live rows
+    *,
+    use_device: bool | None = None,
+    rerank: int = 8,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Exact top-k over a packed matrix.  Returns ``(dists [B, k'],
+    positions [B, k'])`` with ``k' <= k`` columns, distances ascending;
+    invalid rows excluded.  Small partitions run host-side."""
+    return search_packed_async(
+        matrix, queries, k, valid_mask,
+        use_device=use_device, rerank=rerank,
+    )()
+
+
+def _copy_to_host_async(*tensors: torch.Tensor):
+    """Start the D2H copies now: pinned host tensors filled by
+    non-blocking copies, plus an event recorded after them that
+    ``finalize`` waits on.  CPU tensors are already host tensors."""
+    if tensors[0].device.type != "cuda":
+        return tensors, None
+    hosts = tuple(
+        torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors
+    )
+    for host, t in zip(hosts, tensors):
+        host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return hosts, event
+
+
+def search_packed_async(
+    matrix: PackedMatrix,
+    queries: np.ndarray,
+    k: int,
+    valid_mask: np.ndarray | None = None,
+    *,
+    use_device: bool | None = None,
+    rerank: int = 8,
+):
+    """Pipelined variant of :func:`search_packed`: dispatches the device
+    work and returns a ``finalize()`` closure that waits for the D2H
+    copies and runs the host-side cleanup, so a serving loop can issue
+    the next batch before finalizing the previous one."""
+    if matrix.n == 0:
+        b = queries.shape[0]
+        empty = (np.zeros((b, 0), np.float32), np.zeros((b, 0), np.int64))
+        return lambda: empty
+    qs = matrix.prepare_queries(queries)
+    n_live = (
+        int(valid_mask[: matrix.n].sum()) if valid_mask is not None else matrix.n
+    )
+    k_eff = min(k, n_live)
+    if k_eff == 0:
+        b = queries.shape[0]
+        empty = (np.zeros((b, 0), np.float32), np.zeros((b, 0), np.int64))
+        return lambda: empty
+
+    if use_device is None:
+        use_device = matrix.n >= 4096
+
+    if not use_device:
+        data = matrix.data[: matrix.n]
+        if matrix.metric == "cosine":
+            dists = 1.0 - qs @ data.T
+        else:
+            dists = (
+                matrix.sq_norms[: matrix.n][None, :]
+                - 2.0 * (qs @ data.T)
+                + np.sum(qs * qs, axis=1, keepdims=True)
+            )
+        if valid_mask is not None:
+            dists = np.where(valid_mask[: matrix.n][None, :], dists, np.inf)
+        part = np.argpartition(dists, k_eff - 1, axis=1)[:, :k_eff]
+        part_d = np.take_along_axis(dists, part, axis=1)
+        order = np.argsort(part_d, axis=1, kind="stable")
+        idx = np.take_along_axis(part, order, axis=1)
+        host = (
+            np.take_along_axis(dists, idx, axis=1).astype(np.float32),
+            idx.astype(np.int64),
+        )
+        return lambda: host
+
+    # Device path: one H2D (queries), the search, one D2H (top-k).
+    # Tombstones widen k by the dead count; finalize compacts them out.
+    dead = 0 if valid_mask is None else int(matrix.n - n_live)
+    k_query = min(matrix.n, k_eff + dead)
+    # Bucket the shapes as the reference does (batch to a power of two
+    # >= 8, k to a power of two >= 16), so both packages search the same
+    # padded problem and return the same candidates.
+    b_real = qs.shape[0]
+    b_pad = max(8, 1 << (b_real - 1).bit_length())
+    if b_pad != b_real:
+        qs = np.concatenate(
+            [qs, np.zeros((b_pad - b_real, qs.shape[1]), qs.dtype)]
+        )
+    k_bucket = min(matrix.n, max(16, 1 << (int(k_query) - 1).bit_length()))
+    if k_bucket < k_query:  # n itself not a power of two
+        k_bucket = int(k_query)
+    xs16, sq = matrix.device_arrays()
+    dists_dev, idx_dev = resident_topk_auto(
+        xs16,
+        matrix.data_device(),
+        torch.from_numpy(qs).to(matrix.device),
+        matrix.n,
+        sq,
+        k=int(k_bucket),
+        metric=matrix.metric,
+        rerank=max(rerank, 1),
+    )
+    (dists_host, idx_host), copied = _copy_to_host_async(dists_dev, idx_dev)
+    # Snapshot the mask now (the store can mutate between dispatch and
+    # finalize).
+    mask_snapshot = None if valid_mask is None else valid_mask.copy()
+
+    def finalize() -> tuple[np.ndarray, np.ndarray]:
+        if copied is not None:
+            copied.synchronize()
+        dists = dists_host.numpy().astype(np.float32)[:b_real, :k_query]
+        idx = idx_host.numpy().astype(np.int64)[:b_real, :k_query]
+        if mask_snapshot is not None and dead:
+            # Compact live candidates left (stable argsort on the dead
+            # mask keeps ascending-distance order among the live ones),
+            # then trim to k_eff.  Ragged rows pad with position -1 /
+            # +inf, the sentinel convention the Partition layer strips.
+            # The fused path pads overflow with -1, so guard the lookup.
+            in_range = (idx >= 0) & (idx < len(mask_snapshot))
+            live = in_range & mask_snapshot[
+                np.clip(idx, 0, len(mask_snapshot) - 1)
+            ]
+            order = np.argsort(~live, axis=1, kind="stable")
+            live = np.take_along_axis(live, order, axis=1)[:, :k_eff]
+            out_d = np.take_along_axis(dists, order, axis=1)[:, :k_eff]
+            out_i = np.take_along_axis(idx, order, axis=1)[:, :k_eff]
+            return (
+                np.where(live, out_d, np.inf).astype(np.float32),
+                np.where(live, out_i, -1),
+            )
+        return dists[:, :k_eff], idx[:, :k_eff]
+
+    return finalize

@@ -1,0 +1,222 @@
+"""Fused distance + packed bucket-max top-k (PyTorch port).
+
+Port of ``helix_tpu/ops/fused_topk.py``.  The coarse phase is one kernel
+pass over the bf16 matrix that emits a single packed winner per
+``BUCKET``-row window: each score's low ``log2(BUCKET)`` mantissa bits
+are overwritten with its in-bucket row index before a float max over the
+bucket, so the winner carries its own row index and the caller recovers
+the row id as ``bucket * BUCKET + (bits & (BUCKET - 1))`` with no index
+matrix.  Packing perturbs scores by <= 2^-17 relative (selection-only
+noise, erased by the exact f32 re-rank).  A true top-k item is lost only
+when two top-k items share a bucket (~``C(k,2)/buckets``).
+
+:func:`bucket_scores` is the kernel wrapper.  On a CUDA tensor it
+launches the hand-written Hopper kernel ``csrc/bucket_scores.cu`` or
+raises; on a CPU tensor it runs :func:`bucket_scores_reference`, the
+plain PyTorch version of the same arithmetic, which the tests hold
+against the JAX kernel.
+
+Deliberate differences from the reference:
+
+- ``approx_max_k`` becomes the exact ``torch.topk`` (on the CPU the
+  reference's ``approx_max_k`` is exact too).
+- The denormal rule is explicit: a packed value with |v| < FLT_MIN
+  becomes a signed zero, which is what the TPU and XLA's flush do to a
+  row scoring exactly 0 (a zeroed tombstone row).  PyTorch on the CPU
+  does not flush, and CUDA flushes only under ``-ftz=true``.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from .. import kernels
+from .distance import require_fp32_matmul
+
+# Row padding granularity and bucket width (same values and meaning as
+# the reference).
+TILE = 8192
+BUCKET = 64
+
+# Finite "masked row" sentinel: OR-ing index bits into an -inf mantissa
+# would manufacture NaNs.
+NEG_SENTINEL = -3.0e38
+
+# Queries per kernel call: padded to multiples of 128 (the kernel's
+# query tile), at most 256 per call.
+MIN_QUERY_BLOCK = 128
+MAX_QUERY_BLOCK = 256
+
+# What the Hopper kernel takes (csrc/bucket_scores.cu): rows in 128-row
+# blocks (TILE padding guarantees it), queries in 128-query tiles, and
+# the feature dim in 64-column shared-memory stages.  Shared memory does
+# not grow with D, so unlike the TPU's VMEM tile budget there is no
+# upper bound on the width.
+KERNEL_ROWS = 128
+KERNEL_QUERIES = 128
+KERNEL_DEPTH = 64
+
+_EXP_MASK = 0x7F800000
+_SIGN_BIT = -(1 << 31)  # 0x80000000 as int32
+
+
+def bucket_scores_reference(
+    xs16: torch.Tensor, qs16: torch.Tensor, n_valid: int
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: ``[N / BUCKET, B]`` f32
+    packed winners for ``xs16 [N, D]`` and ``qs16 [B, D]`` (bf16).
+
+    A float32 product of the bf16-rounded inputs (exact products, f32
+    sums), the row mask, the pack, the denormal flush and the bucket
+    max."""
+    n = xs16.shape[0]
+    b = qs16.shape[0]
+    sims = xs16.float() @ qs16.float().T
+    rows = torch.arange(n, device=xs16.device, dtype=torch.int32)[:, None]
+    sims = torch.where(rows < n_valid, sims, NEG_SENTINEL)
+    packed = (sims.view(torch.int32) & ~(BUCKET - 1)) | (rows & (BUCKET - 1))
+    packed = torch.where((packed & _EXP_MASK) == 0, packed & _SIGN_BIT, packed)
+    return packed.view(torch.float32).view(n // BUCKET, BUCKET, b).amax(dim=1)
+
+
+def bucket_scores(
+    xs16: torch.Tensor, qs16: torch.Tensor, n_valid: int
+) -> torch.Tensor:
+    """``[N / BUCKET, B]`` f32 packed winners (see module docstring).
+
+    CUDA tensors launch ``csrc/bucket_scores.cu`` on the current stream
+    and count the launch in ``bucket_scores.launches``; CPU tensors run
+    :func:`bucket_scores_reference`.  Anything the kernel does not take
+    raises."""
+    if xs16.device.type == "cpu" and qs16.device.type == "cpu":
+        return bucket_scores_reference(xs16, qs16, n_valid)
+    if xs16.device.type != "cuda" or qs16.device != xs16.device:
+        raise ValueError(
+            f"bucket_scores needs both operands on one CUDA device, got "
+            f"{xs16.device} and {qs16.device}"
+        )
+    if xs16.dtype != torch.bfloat16 or qs16.dtype != torch.bfloat16:
+        raise TypeError(
+            f"bucket_scores takes bf16 operands, got {xs16.dtype} and "
+            f"{qs16.dtype}"
+        )
+    if xs16.dim() != 2 or qs16.dim() != 2 or xs16.shape[1] != qs16.shape[1]:
+        raise ValueError(
+            f"bucket_scores shapes: xs [N, D] and qs [B, D], got "
+            f"{tuple(xs16.shape)} and {tuple(qs16.shape)}"
+        )
+    n, d = xs16.shape
+    b = qs16.shape[0]
+    if n == 0 or n % KERNEL_ROWS or d == 0 or d % KERNEL_DEPTH \
+            or b == 0 or b % KERNEL_QUERIES:
+        raise ValueError(
+            f"bucket_scores needs N % {KERNEL_ROWS} == 0, D % {KERNEL_DEPTH}"
+            f" == 0 and B % {KERNEL_QUERIES} == 0 (all > 0), got N={n} "
+            f"D={d} B={b}"
+        )
+    if n >= 1 << 31:
+        raise ValueError(f"bucket_scores row count {n} exceeds int32")
+    if not (xs16.is_contiguous() and qs16.is_contiguous()):
+        raise ValueError("bucket_scores operands must be contiguous")
+    if xs16.data_ptr() % 16 or qs16.data_ptr() % 16:
+        raise ValueError("bucket_scores operands must be 16-byte aligned")
+    n_valid = max(0, min(int(n_valid), n))
+    out = torch.empty((n // BUCKET, b), dtype=torch.float32,
+                      device=xs16.device)
+    lib = kernels.load()
+    with torch.cuda.device(xs16.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hx_bucket_scores(
+            xs16.data_ptr(), qs16.data_ptr(), out.data_ptr(), n, d, b,
+            n_valid, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"bucket_scores kernel launch failed: CUDA error {rc}")
+    with _LAUNCH_LOCK:  # searches may run on several threads
+        bucket_scores.launches += 1
+    return out
+
+
+bucket_scores.launches = 0
+_LAUNCH_LOCK = threading.Lock()
+
+
+def fused_topk(
+    xs16: torch.Tensor,       # [N, D] bf16, rows padded to TILE
+    xs32: torch.Tensor,       # [N', D] f32 (re-rank operand, N' >= n_valid)
+    qs: torch.Tensor,         # [B, D] f32
+    n_valid: int,
+    sq_norms: torch.Tensor,   # unused (cosine only); kept for API parity
+    *,
+    k: int,
+    rerank: int = 8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Drop-in for ``topk_resident``, cosine metric: fused packed
+    candidates + exact f32 re-rank.  Returns ``(dists, ids)`` ascending
+    by distance; overflow slots (fewer than k valid rows) carry id -1."""
+    require_fp32_matmul()
+    b_in = qs.shape[0]
+    total_buckets = xs16.shape[0] // BUCKET
+    k_cand = min(max(k, min(rerank * k, 512), 64), total_buckets)
+    out_d = []
+    out_i = []
+    for lo in range(0, b_in, MAX_QUERY_BLOCK):
+        chunk = qs[lo:lo + MAX_QUERY_BLOCK]
+        b = chunk.shape[0]
+        b_pad = max(MIN_QUERY_BLOCK, ((b + 127) // 128) * 128)
+        if b_pad != b:
+            chunk = torch.nn.functional.pad(chunk, (0, 0, 0, b_pad - b))
+        qs16 = chunk.to(torch.bfloat16)
+        vals = bucket_scores(xs16, qs16, n_valid).T       # [b_pad, buckets]
+        best_s, pos = torch.topk(vals, k_cand, dim=1)
+        arg = best_s.view(torch.int32) & (BUCKET - 1)
+        best_i = pos * BUCKET + arg
+        # Exact f32 re-rank of the candidates (ids clipped like
+        # jnp.take(mode="clip"): padding-bucket winners may point past
+        # the f32 copy, and the valid mask below drops them).
+        cand = xs32[best_i.clamp(max=xs32.shape[0] - 1)]
+        exact = torch.einsum("bkd,bd->bk", cand, chunk)
+        valid = best_s > NEG_SENTINEL / 2
+        exact = torch.where(valid, exact, float("-inf"))
+        # The bucket reduction yields at most k_cand candidates; a k
+        # beyond that pads with overflow slots (supports_fused routes
+        # that regime to topk_resident; this is the backstop).
+        k_top = min(k, k_cand)
+        top_s, top_pos = torch.topk(exact, k_top, dim=1)
+        top_i = torch.gather(best_i, 1, top_pos)
+        filled = torch.gather(valid, 1, top_pos)
+        top_i = torch.where(filled, top_i, -1)
+        if k_top < k:
+            pad = k - k_top
+            top_s = torch.nn.functional.pad(top_s, (0, pad), value=float("-inf"))
+            top_i = torch.nn.functional.pad(top_i, (0, pad), value=-1)
+        out_d.append((1.0 - top_s)[:b])
+        out_i.append(top_i[:b])
+    dists = out_d[0] if len(out_d) == 1 else torch.cat(out_d, dim=0)
+    ids = out_i[0] if len(out_i) == 1 else torch.cat(out_i, dim=0)
+    return dists, ids
+
+
+def supports_fused(n_rows_padded: int, dim_pad: int, metric: str,
+                   device: torch.device, k: int | None = None) -> bool:
+    """Serving-path gate: a CUDA device, cosine, fused-padded rows, a
+    width the kernel stages (``dim_pad % 128 == 0``; shared memory does
+    not grow with D, so there is no width cap), and — when ``k`` is
+    given — a bucket count that can supply k candidates (one winner per
+    64-row bucket; past that ``topk_resident`` serves the full pool
+    instead of overflow padding)."""
+    return (
+        torch.device(device).type == "cuda"
+        and metric == "cosine"
+        and n_rows_padded % TILE == 0
+        and n_rows_padded >= TILE
+        and dim_pad % 128 == 0
+        and (k is None or k <= n_rows_padded // BUCKET)
+    )
+
+
+def pad_rows_for_fused(n: int) -> int:
+    """Row padding requirement for the fused kernel."""
+    return ((max(n, 1) + TILE - 1) // TILE) * TILE

@@ -1,0 +1,143 @@
+"""Drift guard: the port's copied host modules stay the reference's code.
+
+``helix_tpu_torch/engine/*.py`` are copies of ``helix_tpu/engine/*.py``
+whose imports are made absolute.  Each copy's module docstring lists,
+after "Differs from the reference in:", the functions (``Class.method``
+or module-level names) it changes, adds or drops.  Everything else must
+equal the reference once imports are resolved to absolute module names
+(``helix_tpu_torch`` read as ``helix_tpu``), so a later fix to the
+reference cannot silently miss the port.
+"""
+
+import ast
+import re
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+MODULES = [
+    "batching", "engine", "errors", "exec", "expr", "frame", "replication",
+    "rwlock", "snapshot", "store", "text", "values", "vector",
+]
+
+
+def _listed(doc: str) -> set[str]:
+    _, sep, tail = doc.partition("Differs from the reference in:")
+    assert sep, "docstring must say what differs from the reference"
+    return set(re.findall(r"^- ``([\w.]+)``", tail, flags=re.M))
+
+
+def _absolute(node: ast.ImportFrom, package: str) -> str:
+    if not node.level:
+        return node.module
+    base = package.split(".")
+    base = base[: len(base) - node.level + 1]
+    return ".".join(base + ([node.module] if node.module else []))
+
+
+class _Normalise(ast.NodeTransformer):
+    """Resolve imports to absolute names, read the port's package as the
+    reference's, and drop the listed definitions."""
+
+    def __init__(self, package: str, drop: set[str]):
+        self.package = package
+        self.drop = drop
+        self.scope: list[str] = []
+
+    def _name(self, name: str) -> str:
+        return ".".join(self.scope + [name])
+
+    def visit_ImportFrom(self, node):
+        module = _absolute(node, self.package)
+        module = re.sub(r"^helix_tpu_torch\b", "helix_tpu", module)
+        return ast.ImportFrom(module=module, names=node.names, level=0)
+
+    def visit_Import(self, node):
+        # the port's own framework import (type annotations, devices)
+        return None if [a.name for a in node.names] == ["torch"] else node
+
+    def visit_FunctionDef(self, node):
+        if self._name(node.name) in self.drop:
+            return None
+        self.scope.append(node.name)
+        self.generic_visit(node)
+        self.scope.pop()
+        return node
+
+    def visit_ClassDef(self, node):
+        if self._name(node.name) in self.drop:
+            return None
+        self.scope.append(node.name)
+        node.body = [n for n in (self.visit(b) for b in node.body) if n]
+        self.scope.pop()
+        return node
+
+    def visit_Assign(self, node):
+        names = {t.id for t in node.targets if isinstance(t, ast.Name)}
+        return None if not self.scope and names & self.drop else node
+
+    def visit_AnnAssign(self, node):
+        name = getattr(node.target, "id", None)
+        return None if not self.scope and name in self.drop else node
+
+
+def _definitions(tree: ast.Module) -> set[str]:
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        if isinstance(node, ast.ClassDef):
+            names |= {
+                f"{node.name}.{sub.name}" for sub in node.body
+                if isinstance(sub, ast.FunctionDef)
+            }
+        if isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            names |= {t.id for t in targets if isinstance(t, ast.Name)}
+    return names
+
+
+def _normalised(path: Path, package: str, drop: set[str]) -> list[str]:
+    tree = ast.parse(path.read_text())
+    tree.body = tree.body[1:]  # the module docstring
+    tree = _Normalise(package, drop).visit(tree)
+    return [ast.dump(stmt) for stmt in tree.body]
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_copy_matches_reference(module):
+    ref_path = ROOT / "helix_tpu" / "engine" / f"{module}.py"
+    port_path = ROOT / "helix_tpu_torch" / "engine" / f"{module}.py"
+    port_tree = ast.parse(port_path.read_text())
+    drop = _listed(ast.get_docstring(port_tree) or "")
+    ref_defs = _definitions(ast.parse(ref_path.read_text()))
+    port_defs = _definitions(port_tree)
+    stale = {name for name in drop if name not in ref_defs | port_defs}
+    assert not stale, f"listed but defined in neither module: {stale}"
+    ref = _normalised(ref_path, "helix_tpu.engine", drop)
+    port = _normalised(port_path, "helix_tpu_torch.engine", drop)
+    assert len(ref) == len(port), (
+        f"{module}: {len(ref)} top-level statements in the reference, "
+        f"{len(port)} in the port outside the listed functions"
+    )
+    for i, (a, b) in enumerate(zip(ref, port)):
+        assert a == b, f"{module}: top-level statement {i} drifted:\n{a}\n{b}"
+
+
+def test_copies_never_import_the_reference_engine_or_jax():
+    for module in MODULES:
+        tree = ast.parse(
+            (ROOT / "helix_tpu_torch" / "engine" / f"{module}.py").read_text()
+        )
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom):
+                name = _absolute(node, "helix_tpu_torch.engine")
+            elif isinstance(node, ast.Import):
+                name = node.names[0].name
+            else:
+                continue
+            assert not name.startswith(("jax", "helix_tpu.engine",
+                                        "helix_tpu.ops", "helix_tpu.parallel")), \
+                f"{module} imports {name}"
