@@ -1,24 +1,37 @@
-"""Drive the PyTorch port's exact vector-search path once on one GPU.
+"""Drive the PyTorch port's vector-search paths once on one GPU.
 
     python3 chip_smoke.py
 
 Needs one CUDA device (exits nonzero without one, and prints no result),
-``nvcc`` for the kernel build, and the repository checkout (it imports
-``helix_tpu_torch``, never JAX).  Phases, each failing the run on a bad
-check:
+``nvcc`` for the kernel build, ``g++`` for the native re-rank library,
+and the repository checkout (it imports ``helix_tpu_torch``, never JAX).
+Phases, each failing the run on a bad check:
 
-1. Build the hand-written kernels from ``helix_tpu_torch/csrc``.
-2. Kernel: ``bucket_scores`` against its plain PyTorch version at the
+1. Build the hand-written kernels from ``helix_tpu_torch/csrc`` and the
+   native host library (``helix_tpu/native``, the quantized rungs'
+   re-rank).
+2. Kernel 1: ``bucket_scores`` against its plain PyTorch version at the
    main path's shapes (1M rows padded to 8192, D=128, B=256), with the
    tolerance rule of ``tests/test_torch_fused_topk.py`` at 1e-5; both
    timed with CUDA events (median over fresh query batches).
-3. Engine: ``Engine(device="cuda")`` ingests 1M x 128 clustered vectors
-   (``bench.py``'s generator, seed 42) through ``ForEach AddN`` write
-   batches, then answers single-query reads through ``execute_stored``
-   and ``execute`` and a 256-query ``Partition.search_many`` batch.  The
-   answers hold recall@10 >= 0.99 and exact ``$distance`` against a
-   float32 numpy oracle, a dropped top hit disappears, and the kernel's
-   launch count shows that the fused path served the queries.
+3. Kernels 2 and 3: ``i8_bucket_scores`` and ``i4_bucket_scores`` against
+   their plain versions at the same shapes, on random unit rows
+   quantized by the port's own quantizers: the outputs must be equal bit
+   for bit, a bucket holding a zero row must flush to a zero winner, and
+   both sides are timed the same way.
+4. Engine (exact): ``Engine(device="cuda")`` ingests 1M x 128 clustered
+   vectors (``bench.py``'s generator, seed 42) through ``ForEach AddN``
+   write batches, then answers single-query reads through
+   ``execute_stored`` and ``execute`` and 256-query
+   ``Partition.search_many`` batches.  The answers hold recall@10 >= 0.99
+   and exact ``$distance`` against a float32 numpy oracle, a dropped top
+   hit disappears, and the launch counts show that kernel 1 served.
+5. Ladder: ``Engine(device="cuda", hbm_budget_bytes=96 MiB)`` ingests the
+   same set.  At 500,000 rows the int8 rung serves (kernel 2), with the
+   host re-rank and then with ``HELIX_QUANT_RERANK=device``; at 1,000,000
+   rows the int4 rung serves (kernel 3).  Each step checks its rung,
+   recall@10 (>= 0.98 int8, >= 0.95 int4), ``$distance``, a dropped top
+   hit, and that its kernel and no other launched.
 
 The last lines are a ``{"kernels": [...]}`` JSON object, the card's
 name and power limit from ``nvidia-smi``, and
@@ -27,7 +40,9 @@ name and power limit from ``nvidia-smi``, and
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -42,6 +57,13 @@ K = 10
 INGEST_CHUNK = 50_000
 TOL = 1e-5
 KERNEL_RUNS = 5
+N_PROBE = 128  # p90 of the per-request latency has 12 samples past it
+N_BATCHES = 16
+# The ladder phase's budget: at dim_pad 128, 500,000 rows fit int8 codes
+# (66 MB) but not the exact copies (384 MB), and 1,000,000 rows fit
+# packed int4 (68 MB) but not int8 (132 MB).
+LADDER_BUDGET = 96 << 20
+DEVICE_RERANK_TOL = 2e-3  # f16 rows: |x| * 2^-11 per component
 
 
 def log(msg: str) -> None:
@@ -96,6 +118,33 @@ def compare_packed(got: torch.Tensor, want: torch.Tensor, sims: torch.Tensor,
     return float(diff.max().item())
 
 
+def cuda_ms(fn, *args, **kwargs) -> float:
+    """CUDA-event time of one ``fn(*args, **kwargs)`` on the current
+    stream, in ms."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(*args, **kwargs)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def time_pair(kernel, plain, inputs: list) -> tuple[float, float]:
+    """Median CUDA-event times of ``kernel(*args)`` and ``plain(*args)``
+    over fresh inputs, alternating which side runs first."""
+    cuda_ms(plain, *inputs[0])  # warm-up
+    ks, ps = [], []
+    for i, args in enumerate(inputs):
+        if i % 2:
+            ks.append(cuda_ms(kernel, *args))
+            ps.append(cuda_ms(plain, *args))
+        else:
+            ps.append(cuda_ms(plain, *args))
+            ks.append(cuda_ms(kernel, *args))
+    return float(np.median(ks)), float(np.median(ps))
+
+
 def kernel_phase(device: torch.device) -> dict:
     from helix_tpu_torch.ops import fused_topk as F
 
@@ -126,25 +175,8 @@ def kernel_phase(device: torch.device) -> dict:
     max_err = compare_packed(got, want, sims, TOL)
     del sims, want, got
 
-    def timed(fn, q) -> float:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(xs16, q, N_ROWS)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
-
-    timed(F.bucket_scores_reference, queries[0])  # warm-up
-    plain, kern = [], []
-    for i, q in enumerate(queries):  # alternate which side runs first
-        if i % 2:
-            kern.append(timed(F.bucket_scores, q))
-            plain.append(timed(F.bucket_scores_reference, q))
-        else:
-            plain.append(timed(F.bucket_scores_reference, q))
-            kern.append(timed(F.bucket_scores, q))
-    ms, plain_ms = float(np.median(kern)), float(np.median(plain))
+    ms, plain_ms = time_pair(F.bucket_scores, F.bucket_scores_reference,
+                             [(xs16, q, N_ROWS) for q in queries])
     log(f"kernel bucket_scores N={n} D={DIM} B={BATCH}: {ms:.4f} ms "
         f"(plain {plain_ms:.4f} ms), max unpacked |err| {max_err:.3g}")
 
@@ -152,16 +184,86 @@ def kernel_phase(device: torch.device) -> dict:
     # for k=10): its time less the kernel's is the top-k / re-rank tail.
     xs32 = xs16.float()
     sq = torch.ones(n, device=device)
-    fused = []
-    for q in queries:
-        q32 = q.float()
-        fused.append(timed(
-            lambda a, b, c: F.fused_topk(a, xs32, b, c, sq, k=16), q32))
-    fused_ms = float(np.median(fused))
+    fused_ms = float(np.median([
+        cuda_ms(F.fused_topk, xs16, xs32, q.float(), N_ROWS, sq, k=16)
+        for q in queries
+    ]))
     log(f"fused_topk (kernel + top-k + f32 re-rank) B={BATCH}: "
         f"{fused_ms:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "fused_ms": fused_ms}
+
+
+def check_bitwise(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Kernels 2 and 3 sum exact integers: equal bits or fail.  Returns
+    the largest absolute difference (0.0 when equal)."""
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} vs "
+          f"{tuple(want.shape)}")
+    same = got.view(torch.int32) == want.view(torch.int32)
+    check(bool(same.all()), f"{name}: {int((~same).sum())} of {same.numel()}"
+          " outputs differ from the plain version")
+    return float((got - want).abs().max().item())
+
+
+def quant_kernel_phase(device: torch.device) -> dict:
+    """Kernels 2 and 3 at the main path's shapes, on unit rows quantized
+    by the port's quantizers (int8 global scale; scale-sorted int4)."""
+    from helix_tpu_torch.ops import fused_topk as F
+    from helix_tpu_torch.ops import quant as Q
+    from helix_tpu_torch.ops import quant4 as Q4
+
+    n = F.pad_rows_for_fused(N_ROWS)
+    rng = np.random.default_rng(11)
+    rows = rng.standard_normal((n, DIM), dtype=np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    q_i8 = []
+    for _ in range(KERNEL_RUNS):
+        q = torch.randn((BATCH, DIM), device=device)
+        q_i8.append(Q._quantize_queries(q / q.norm(dim=1, keepdim=True))[0])
+
+    # Pin the FTZ rule: bucket 0 scores negative for query 0 except a
+    # zeroed row 5, whose packed denormal must flush to a zero winner.
+    neg = -torch.sign(q_i8[0][0].float()).cpu().numpy()
+    t0 = time.perf_counter()
+    xi = Q.quantize_rows_unit(rows)
+    xi[: F.BUCKET] = (neg * 100).astype(np.int8)
+    xi[5] = 0
+    packed, bsc, _, _ = Q4.quantize_rows_int4_bucketed(rows, n_live=N_ROWS)
+    half = DIM // 2
+    nib = (neg * 7).astype(np.int8)
+    packed[: F.BUCKET] = ((nib[:half] & 0x0F) | ((nib[half:] & 0x0F) << 4)
+                          ).astype(np.uint8)
+    packed[5] = 0
+    log(f"quantize {n} x {DIM} (int8 + bucketed int4): "
+        f"{time.perf_counter() - t0:.1f} s")
+    del rows
+    xi = torch.from_numpy(xi).to(device)
+    packed = torch.from_numpy(packed).to(device)
+    bsc = torch.from_numpy(bsc).to(device)
+
+    out = {}
+    for name, kernel, plain, operands in (
+        ("i8_bucket_scores", Q.i8_bucket_scores,
+         Q.i8_bucket_scores_reference, lambda q: (xi, q, N_ROWS)),
+        ("i4_bucket_scores", Q4.i4_bucket_scores,
+         Q4.i4_bucket_scores_reference, lambda q: (packed, bsc, q, N_ROWS)),
+    ):
+        got = kernel(*operands(q_i8[0]))
+        want = plain(*operands(q_i8[0]))
+        err = check_bitwise(name, got, want)
+        check(int(got[0, 0].view(torch.int32)) == 0,
+              f"{name}: the zero-row bucket's winner was not flushed")
+        for q in q_i8[1:]:
+            err = max(err, check_bitwise(name, kernel(*operands(q)),
+                                         plain(*operands(q))))
+        del got, want
+        ms, plain_ms = time_pair(kernel, plain, [operands(q) for q in q_i8])
+        log(f"kernel {name} N={n} D={DIM} B={BATCH}: {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms), bitwise equal, max |err| {err:.3g}, "
+            "zero-row bucket flushed")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return out
 
 
 # ---------------------------------------------------------------- engine
@@ -242,23 +344,45 @@ def rows_of(hits: list) -> tuple[list[int], list[float]]:
     return [h["i"] for h in hits], [h["$distance"] for h in hits]
 
 
-def engine_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
-    from helix_tpu_torch.engine import Engine
+def launch_counts() -> dict:
     from helix_tpu_torch.ops import fused_topk as F
+    from helix_tpu_torch.ops import quant as Q
+    from helix_tpu_torch.ops import quant4 as Q4
 
-    n_probe = 128  # p90 of the per-request latency has 12 samples past it
-    n_batches = 16
-    data, queries = make_dataset(n_rows, DIM, n_probe + n_batches * BATCH)
-    engine = Engine(device=device)
+    return {"bucket_scores": F.bucket_scores.launches,
+            "i8_bucket_scores": Q.i8_bucket_scores.launches,
+            "i4_bucket_scores": Q4.i4_bucket_scores.launches}
+
+
+def reset_launch_counts() -> None:
+    from helix_tpu_torch.ops import fused_topk as F
+    from helix_tpu_torch.ops import quant as Q
+    from helix_tpu_torch.ops import quant4 as Q4
+
+    F.bucket_scores.launches = 0
+    Q.i8_bucket_scores.launches = 0
+    Q4.i4_bucket_scores.launches = 0
+
+
+def check_only_launched(device: torch.device, counts: dict, kernel: str,
+                        what: str) -> None:
+    """``kernel`` served the step and no other kernel launched (on the
+    card; a CPU rehearsal runs the plain versions and counts nothing)."""
+    if device.type != "cuda":
+        return
+    check(counts[kernel] > 0, f"{what}: {kernel} never launched")
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    check(not others, f"{what}: other kernels launched: {others}")
+
+
+def new_engine(device: torch.device, **knobs):
+    """An engine with the Doc.emb vector index and the vsearch route."""
+    from helix_tpu_torch.engine import Engine
+
+    engine = Engine(device=device, **knobs)
     write(engine, [{"CreateIndex": {"spec": {"NodeVector": {
         "label": "Doc", "property": "emb", "tenant_property": None,
     }}, "if_not_exists": True}}], {}, {})
-    t0 = time.perf_counter()
-    for lo in range(0, n_rows, INGEST_CHUNK):
-        engine.execute(ingest_request(lo, data[lo:lo + INGEST_CHUNK]))
-    ingest_s = time.perf_counter() - t0
-    log(f"ingest {n_rows} x {DIM}: {ingest_s:.1f} s "
-        f"({n_rows / ingest_s:.0f} docs/s)")
     engine.load_bundle({
         "version": 5,
         "read_routes": {"vsearch": {"queries": [{"Query": {
@@ -269,29 +393,69 @@ def engine_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
         ]},
         "write_routes": {}, "write_parameters": {},
     })
-    part = engine.vectors.indexes[("NodeVector", "Doc", "emb")].partitions[("",)]
-    matrix = part.matrix
-    check(matrix.n == n_rows, f"matrix holds {matrix.n} rows, want {n_rows}")
-    stored = matrix.data[:n_rows]
+    return engine
 
-    # Oracle: float32 numpy brute force over the rows the engine stores.
-    probe = queries[:n_probe]
-    prepared = matrix.prepare_queries(probe)
-    sims = prepared @ stored.T
+
+def ingest(engine, data: np.ndarray, lo: int, hi: int) -> float:
+    t0 = time.perf_counter()
+    for start in range(lo, hi, INGEST_CHUNK):
+        engine.execute(ingest_request(start, data[start:min(hi, start +
+                                                            INGEST_CHUNK)]))
+    return time.perf_counter() - t0
+
+
+def doc_partition(engine):
+    return engine.vectors.indexes[("NodeVector", "Doc", "emb")] \
+        .partitions[("",)]
+
+
+class HostRerankClock:
+    """Wall time spent in the quantized rungs' host re-rank
+    (``helix_tpu.native.rerank``, which they import at each call), so a
+    batch's time splits into re-rank and the rest."""
+
+    def __init__(self):
+        self.ms = 0.0
+
+    def __enter__(self):
+        from helix_tpu import native
+
+        self._native = native
+        self._rerank = native.rerank
+
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return self._rerank(*args, **kwargs)
+            finally:
+                self.ms += (time.perf_counter() - t) * 1e3
+
+        native.rerank = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._native.rerank = self._rerank
+
+
+def serve_reads(engine, part, queries: np.ndarray, dead: list, *,
+                recall_floor: float, dist_tol: float, what: str) -> dict:
+    """Single-query reads (``execute_stored`` and ``execute`` in turn,
+    N_PROBE of them) and N_BATCHES ``Partition.search_many`` batches of
+    BATCH, checked against a float32 numpy oracle over the rows the
+    engine stores (``dead`` rows excluded): recall@K at least
+    ``recall_floor`` on both, ``$distance`` within ``dist_tol`` of
+    ``1 - q.x``.  Returns the metrics and the first probe's rows."""
+    matrix = part.matrix
+    stored = matrix.data[: matrix.n]
+    probe = queries[:N_PROBE]
+    sims = matrix.prepare_queries(probe) @ stored.T
+    sims[:, dead] = -np.inf
     oracle = top_rows(sims, K)
 
-    F.bucket_scores.launches = 0
-    t_up = time.perf_counter()
-    matrix.device_arrays()
-    matrix.data_device()
-    torch.cuda.synchronize(device)
-    upload_s = time.perf_counter() - t_up
-    log(f"H2D upload (bf16 + f32 copies of {matrix.n} rows): {upload_s:.3f} s")
-
     got_rows: list[list[int]] = []
-    got_dist: list[list[float]] = []
+    worst = 0.0
     latencies = []
-    for j in range(n_probe):
+    for j in range(N_PROBE):
         t = time.perf_counter()
         if j % 2:
             out = engine.execute(search_request(probe[j]))
@@ -301,67 +465,175 @@ def engine_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
         latencies.append(time.perf_counter() - t)
         rows, dists = rows_of(out["hits"])
         got_rows.append(rows)
-        got_dist.append(dists)
+        for row, dist in zip(rows, dists):
+            worst = max(worst, abs(dist - (1.0 - float(sims[j, row]))))
     recall = float(np.mean([
         len(set(got_rows[j]) & set(oracle[j].tolist())) / K
-        for j in range(n_probe)
+        for j in range(N_PROBE)
     ]))
-    worst = 0.0
-    for j in range(n_probe):
-        for row, dist in zip(got_rows[j], got_dist[j]):
-            worst = max(worst, abs(dist - (1.0 - float(sims[j, row]))))
-    log(f"single-query reads: recall@{K} {recall:.4f}, max |$distance - "
-        f"(1 - q.x)| {worst:.3g}, latency p50 "
-        f"{np.median(latencies) * 1e3:.3f} ms p90 "
-        f"{np.percentile(latencies, 90) * 1e3:.3f} ms (n={n_probe})")
-    check(recall >= 0.99, f"recall@{K} {recall} < 0.99")
-    check(worst <= TOL, f"$distance off by {worst}")
+    p50, p90 = (float(np.percentile(latencies, p) * 1e3) for p in (50, 90))
+    log(f"{what} single-query reads: recall@{K} {recall:.4f}, max "
+        f"|$distance - (1 - q.x)| {worst:.3g}, latency p50 {p50:.3f} ms "
+        f"p90 {p90:.3f} ms (n={N_PROBE})")
+    check(recall >= recall_floor, f"{what}: recall@{K} {recall} < "
+          f"{recall_floor}")
+    check(worst <= dist_tol, f"{what}: $distance off by {worst}")
 
-    # The gateway's vbatch entry: one Partition.search_many of 256.
+    # The gateway's vbatch entry: Partition.search_many of BATCH.
     batch_ms = []
-    for b in range(n_batches):
-        qb = queries[n_probe + b * BATCH:n_probe + (b + 1) * BATCH]
-        t = time.perf_counter()
-        ids, dists = part.search_many(qb, K)
-        batch_ms.append((time.perf_counter() - t) * 1e3)
+    rerank_ms = []
+    first_ids = None
+    for b in range(N_BATCHES):
+        qb = queries[N_PROBE + b * BATCH:N_PROBE + (b + 1) * BATCH]
+        with HostRerankClock() as clock:
+            t = time.perf_counter()
+            ids, dists = part.search_many(qb, K)
+            batch_ms.append((time.perf_counter() - t) * 1e3)
+        rerank_ms.append(clock.ms)
         check(ids.shape == (BATCH, K) and np.isfinite(dists).all(),
-              f"search_many returned {ids.shape} / non-finite distances")
-    qb = queries[n_probe:n_probe + BATCH]
-    ids, _ = part.search_many(qb, K)
-    batch_oracle = top_rows(matrix.prepare_queries(qb) @ stored.T, K)
-    batch_rows = np.vectorize(part.pos.__getitem__)(ids.astype(np.int64))
+              f"{what}: search_many returned {ids.shape} / non-finite "
+              "distances")
+        if first_ids is None:
+            first_ids = ids
+    qb = queries[N_PROBE:N_PROBE + BATCH]
+    batch_sims = matrix.prepare_queries(qb) @ stored.T
+    batch_sims[:, dead] = -np.inf
+    batch_oracle = top_rows(batch_sims, K)
+    batch_rows = np.vectorize(part.pos.__getitem__)(first_ids.astype(np.int64))
     batch_recall = float(np.mean([
         len(set(batch_rows[j].tolist()) & set(batch_oracle[j].tolist())) / K
         for j in range(BATCH)
     ]))
-    log(f"search_many B={BATCH}: median {np.median(batch_ms):.3f} ms/batch "
-        f"max {max(batch_ms):.3f} (n={n_batches}), "
-        f"{BATCH / np.median(batch_ms) * 1e3:.0f} QPS, recall@{K} "
-        f"{batch_recall:.4f}")
-    check(batch_recall >= 0.99, f"batch recall@{K} {batch_recall} < 0.99")
+    median = float(np.median(batch_ms))
+    rerank = float(np.median(rerank_ms))
+    log(f"{what} search_many B={BATCH}: median {median:.3f} ms/batch max "
+        f"{max(batch_ms):.3f} (n={N_BATCHES}), {BATCH / median * 1e3:.0f} "
+        f"QPS, recall@{K} {batch_recall:.4f}; host re-rank median "
+        f"{rerank:.3f} ms/batch")
+    check(batch_recall >= recall_floor, f"{what}: batch recall@{K} "
+          f"{batch_recall} < {recall_floor}")
+    return {"recall": recall, "batch_recall": batch_recall,
+            "batch_ms": median, "qps": BATCH / median * 1e3,
+            "host_rerank_ms": rerank,
+            "p50_ms": p50, "p90_ms": p90, "max_dist_err": worst,
+            "first_rows": got_rows[0]}
 
-    # Drop the first probe's top hit; the next answer must not hold it.
-    top_row = got_rows[0][0]
+
+def check_drop(engine, part, q: np.ndarray, rows_before: list,
+               what: str) -> int:
+    """Drop the top hit of ``q``; the next answer must not hold it.
+    Returns the dropped row."""
+    top_row = rows_before[0]
     top_id = int(part.id_table[top_row])
     write(engine, [{"N": {"Param": "ids"}}, "Drop"], {"ids": [top_id]},
           {"ids": {"Array": "I64"}})
-    out = engine.execute_stored("vsearch", {"q": probe[0].tolist(), "k": K})
+    out = engine.execute_stored("vsearch", {"q": q.tolist(), "k": K})
     rows, _ = rows_of(out["hits"])
     check(top_row not in rows and len(rows) == K,
-          f"dropped row {top_row} still answered: {rows}")
-    check(len(set(rows) & set(got_rows[0][1:])) >= K - 2,
-          "answer after the drop lost the old answer's other hits")
+          f"{what}: dropped row {top_row} still answered: {rows}")
+    check(len(set(rows) & set(rows_before[1:])) >= K - 2,
+          f"{what}: answer after the drop lost the old answer's other hits")
+    return top_row
 
-    launches = F.bucket_scores.launches
-    check(launches > 0, "the fused kernel served no query")
-    log(f"engine phase: {launches} bucket_scores launches")
-    return {
-        "launches": launches, "recall": recall, "batch_recall": batch_recall,
-        "batch_ms": float(np.median(batch_ms)),
-        "p50_ms": float(np.median(latencies) * 1e3),
-        "p90_ms": float(np.percentile(latencies, 90) * 1e3),
-        "ingest_s": ingest_s, "upload_s": upload_s,
-    }
+
+def engine_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
+    data, queries = make_dataset(n_rows, DIM, N_PROBE + N_BATCHES * BATCH)
+    engine = new_engine(device)
+    ingest_s = ingest(engine, data, 0, n_rows)
+    log(f"ingest {n_rows} x {DIM}: {ingest_s:.1f} s "
+        f"({n_rows / ingest_s:.0f} docs/s)")
+    part = doc_partition(engine)
+    matrix = part.matrix
+    check(matrix.n == n_rows, f"matrix holds {matrix.n} rows, want {n_rows}")
+
+    reset_launch_counts()
+    t_up = time.perf_counter()
+    matrix.device_arrays()
+    matrix.data_device()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    upload_s = time.perf_counter() - t_up
+    log(f"H2D upload (bf16 + f32 copies of {matrix.n} rows): {upload_s:.3f} s")
+    res = serve_reads(engine, part, queries, [], recall_floor=0.99,
+                      dist_tol=TOL, what="exact")
+    check_drop(engine, part, queries[0], res["first_rows"], "exact")
+    counts = launch_counts()
+    check_only_launched(device, counts, "bucket_scores", "engine phase")
+    log(f"engine phase: launches {counts}")
+    matrix.release_device()
+    res.update(launches=counts["bucket_scores"], ingest_s=ingest_s,
+               upload_s=upload_s)
+    return res
+
+
+def ladder_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
+    """The residency ladder under a device-memory budget: one engine
+    ingests the engine phase's set; at half of it the int8 rung serves
+    (host re-rank, then ``HELIX_QUANT_RERANK=device``), at all of it the
+    int4 rung.  A CPU rehearsal at a smaller ``n_rows`` scales the budget
+    with it."""
+    budget = LADDER_BUDGET * n_rows // N_ROWS
+    data, queries = make_dataset(n_rows, DIM, N_PROBE + N_BATCHES * BATCH)
+    engine = new_engine(device, hbm_budget_bytes=budget)
+    dead: list = []
+    out: dict = {"launches": {}}
+    half = n_rows // 2
+    for lo, rows, rung in ((0, half, "int8"), (half, n_rows, "int4")):
+        ingest_s = ingest(engine, data, lo, rows)
+        part = doc_partition(engine)
+        log(f"ladder: ingest to {rows} rows: {ingest_s:.1f} s (budget "
+            f"{budget} bytes)")
+        check(part._use_host_ivf() is False and part._use_host_exact() is
+              False, f"ladder at {rows}: a host rung would serve")
+        check(part._use_quant() == (rung == "int8")
+              and part._use_quant4() == (rung == "int4"),
+              f"ladder at {rows}: int8 {part._use_quant()} int4 "
+              f"{part._use_quant4()}, want {rung}")
+        reset_launch_counts()
+        modes = ("auto", "device") if rung == "int8" else ("auto",)
+        for mode in modes:
+            what = f"{rung} ({mode} re-rank)" if rung == "int8" else rung
+            os.environ["HELIX_QUANT_RERANK"] = mode
+            if rung == "int8":
+                check(part._quant_rerank_device() == (mode == "device"),
+                      f"{what}: re-rank placement")
+            t = time.perf_counter()
+            engine.execute_stored("vsearch", {"q": queries[0].tolist(),
+                                              "k": K})
+            first_ms = (time.perf_counter() - t) * 1e3
+            log(f"{what}: first search after the change (quantize + "
+                f"upload) {first_ms:.1f} ms")
+            res = serve_reads(
+                engine, part, queries, dead,
+                recall_floor=0.98 if rung == "int8" else 0.95,
+                dist_tol=DEVICE_RERANK_TOL if mode == "device" else TOL,
+                what=what)
+            res["first_ms"] = first_ms
+            out[what] = res
+        os.environ.pop("HELIX_QUANT_RERANK")
+        dead.append(check_drop(engine, part, queries[0],
+                               out[what]["first_rows"], what))
+        check(part.matrix._device is None and part.matrix._device32 is None,
+              f"ladder at {rows}: the exact tier uploaded past the budget")
+        counts = launch_counts()
+        kernel = "i8_bucket_scores" if rung == "int8" else "i4_bucket_scores"
+        check_only_launched(device, counts, kernel, f"ladder {rung}")
+        out["launches"][kernel] = counts[kernel]
+        mem = torch.cuda.memory_allocated(device) if device.type == "cuda" \
+            else 0
+        log(f"ladder {rung} at {rows} rows: launches {counts}, device "
+            f"memory allocated {mem} bytes")
+    return out
+
+
+KERNELS = (
+    ("bucket_scores", "helix_tpu_torch/csrc/bucket_scores.cu",
+     "helix_tpu/ops/fused_topk.py:173"),
+    ("i8_bucket_scores", "helix_tpu_torch/csrc/i8_bucket_scores.cu",
+     "helix_tpu/ops/quant.py:573"),
+    ("i4_bucket_scores", "helix_tpu_torch/csrc/i4_bucket_scores.cu",
+     "helix_tpu/ops/quant4.py:249"),
+)
 
 
 def main() -> int:
@@ -372,33 +644,42 @@ def main() -> int:
     card_line = card()
     log(f"card: {card_line}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    from helix_tpu import native
     from helix_tpu_torch import kernels
 
     t = time.perf_counter()
     kernels.load()
     log(f"kernel build + load: {time.perf_counter() - t:.1f} s "
         f"({kernels.library_path().name})")
+    t = time.perf_counter()
+    native.load()
+    log(f"native host library build + load: {time.perf_counter() - t:.1f} s")
 
-    kern = kernel_phase(device)
+    kern = {"bucket_scores": kernel_phase(device)}
+    kern.update(quant_kernel_phase(device))
     eng = engine_phase(device)
     # Derived from the two phases (kernel and fused step on the kernel
     # phase's random matrix, search_many on the engine's): where one
     # B=256 search_many goes.
-    log(f"per-batch split B={BATCH} on {card_line}: kernel {kern['ms']:.3f} "
-        f"ms (plain {kern['plain_ms']:.3f} ms), top-k + re-rank tail "
-        f"{kern['fused_ms'] - kern['ms']:.3f} ms, host + transfers "
-        f"{eng['batch_ms'] - kern['fused_ms']:.3f} ms (search_many median "
+    k1 = kern["bucket_scores"]
+    log(f"per-batch split B={BATCH} on {card_line}: kernel {k1['ms']:.3f} "
+        f"ms (plain {k1['plain_ms']:.3f} ms), top-k + re-rank tail "
+        f"{k1['fused_ms'] - k1['ms']:.3f} ms, host + transfers "
+        f"{eng['batch_ms'] - k1['fused_ms']:.3f} ms (search_many median "
         f"{eng['batch_ms']:.3f} ms)")
+    gc.collect()  # the exact engine's host rows (cycles keep them alive)
+    ladder = ladder_phase(device)
+    launches = {"bucket_scores": eng["launches"], **ladder["launches"]}
     print(json.dumps({"kernels": [{
-        "name": "bucket_scores",
+        "name": name,
         "route": "cuda",
-        "source": "helix_tpu_torch/csrc/bucket_scores.cu",
-        "replaces": "helix_tpu/ops/fused_topk.py:173",
-        "launches": eng["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-    }]}), flush=True)
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": kern[name]["max_abs_err"],
+        "ms": kern[name]["ms"],
+        "plain_ms": kern[name]["plain_ms"],
+    } for name, source, replaces in KERNELS]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

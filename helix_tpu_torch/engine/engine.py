@@ -9,11 +9,11 @@ needs: :meth:`execute` (dynamic requests, ``POST /v1/query``),
 Port of ``helix_tpu/engine/engine.py`` for ``helix_tpu_torch``: the
 engine holds an explicit ``torch.device`` (``"cuda"`` unless told
 otherwise; the CPU tests pass ``"cpu"``) and hands it to the vector
-indexes.  Knobs whose code paths are later slices of the port are
-refused with an error naming the slice, never silently ignored:
-``data_dir`` and ``snapshot_store`` (persistence), ``hbm_budget_bytes``
-and ``quant_candidates`` (the residency ladder), ``shard_threshold`` and
-``graph_shard_threshold`` (multi-GPU).  ``tests/test_torch_engine_copy.py``
+indexes, with the residency ladder's knobs (``hbm_budget_bytes``,
+``quant_candidates``).  Knobs whose code paths are later slices of the
+port are refused with an error naming the slice, never silently ignored:
+``data_dir`` and ``snapshot_store`` (persistence), ``shard_threshold``
+and ``graph_shard_threshold`` (multi-GPU).  ``tests/test_torch_engine_copy.py``
 holds the rest of the code equal to the reference's.
 
 Differs from the reference in:
@@ -136,14 +136,14 @@ class Engine:
             )
         _refuse("data_dir", data_dir, "persistence")
         _refuse("snapshot_store", snapshot_store, "persistence")
-        _refuse("hbm_budget_bytes", hbm_budget_bytes, "residency ladder")
-        _refuse("quant_candidates", quant_candidates, "residency ladder")
         _refuse("shard_threshold", shard_threshold, "multi-GPU")
         _refuse("graph_shard_threshold", graph_shard_threshold, "multi-GPU")
         self.store = GraphStore()
         self.snapshots = SnapshotCache(self.store)
         self.vectors = VectorManager(
             metric=metric, batch_window_ms=batch_window_ms,
+            hbm_budget_bytes=hbm_budget_bytes,
+            quant_candidates=quant_candidates,
             device=self.device,
         )
         self.texts = TextManager()

@@ -15,40 +15,34 @@ MXU through the residency ladder (exact / int8 / int4 / host IVF).
 
 Port of ``helix_tpu/engine/vector.py`` for ``helix_tpu_torch``: partitions
 hold the port's :class:`~helix_tpu_torch.ops.distance.PackedMatrix` on the
-engine's ``torch.device`` and serve the exact tier only.  The residency
-ladder's rungs (int8, int4, host-exact, host IVF, sharded) are later
-slices (ROADMAP.md Queue 1); the port's ``Engine`` refuses the knobs that
-would select them.  ``tests/test_torch_engine_copy.py`` holds the rest of
-the code equal to the reference's.
+engine's ``torch.device`` and walk the residency ladder on one device:
+exact, int8 (``ops/quant.py``), int4 (``ops/quant4.py``) and, for l2,
+host-exact.  The host-IVF rung (ROADMAP.md Queue 1 #4) and the sharded
+tier (multi-GPU) are later slices: a walk that reaches host-IVF raises
+``NotImplementedError`` instead of serving another rung.
+``tests/test_torch_engine_copy.py`` holds the rest of the code equal to
+the reference's.
 
 Differs from the reference in:
 
-- ``Partition.__init__``: takes ``device``; no ladder state.
+- ``Partition.__init__``: takes ``device``; no shard or host-IVF state.
 - ``Partition.add``: builds the matrix on the partition's device.
 - ``Partition.add_bulk``: builds the matrix on the partition's device.
-- ``Partition.search_many_async``: the exact tier only.
-- ``Partition._exact_resident_bytes``: ladder accounting, not ported.
-- ``Partition._quant_resident_bytes``: ladder accounting, not ported.
-- ``Partition._quant4_resident_bytes``: ladder accounting, not ported.
-- ``Partition._quant_dev_resident_bytes``: ladder accounting, not ported.
-- ``Partition._quant_rerank_device``: int8 rung, not ported.
-- ``Partition._use_quant``: int8 rung, not ported.
-- ``Partition._search_quant``: int8 rung, not ported.
-- ``Partition._search_quant_sharded``: int8 rung, not ported.
-- ``Partition._quant_rerank_device_sharded``: int8 rung, not ported.
-- ``Partition._quant4_recall_serving``: int4 rung, not ported.
-- ``Partition._use_quant4``: int4 rung, not ported.
-- ``Partition._search_quant4``: int4 rung, not ported.
-- ``Partition._use_host_exact``: host-exact rung, not ported.
-- ``Partition._search_host_exact``: host-exact rung, not ported.
-- ``Partition._use_host_ivf``: IVF rung, not ported.
+- ``Partition.search_many_async``: raises at the host-IVF rung; no
+  sharded tier.
+- ``Partition._search_quant``: one device (no mesh branch).
+- ``Partition._search_quant_sharded``: multi-GPU rung, not ported.
+- ``Partition._quant_rerank_device_sharded``: multi-GPU rung, not ported.
+- ``Partition._quant4_recall_serving``: one device (no mesh branch).
+- ``Partition._search_quant4``: one device (no mesh branch).
 - ``Partition._ensure_host_ivf``: IVF rung, not ported.
 - ``Partition._search_host_ivf``: IVF rung, not ported.
 - ``Partition._use_shard``: multi-GPU rung, not ported.
 - ``Partition._search_sharded``: multi-GPU rung, not ported.
-- ``VectorIndex.__init__``: takes ``device`` in place of the ladder knobs.
+- ``VectorIndex.__init__``: takes ``device`` in place of ``shard_threshold``.
 - ``VectorIndex.partition_for``: passes ``device`` on.
-- ``VectorManager.__init__``: takes ``device`` in place of the ladder knobs.
+- ``VectorManager.__init__``: takes ``device`` in place of
+  ``shard_threshold``.
 - ``VectorManager.on_index_created``: passes ``device`` on.
 """
 
@@ -109,7 +103,14 @@ class Partition:
     (helix-cli/src/config.rs:191-201) on this hardware.
     """
 
-    def __init__(self, metric: str, *, device: torch.device):
+    def __init__(
+        self,
+        metric: str,
+        hbm_budget_bytes: int | None = None,
+        quant_candidates: int | None = None,
+        *,
+        device: torch.device,
+    ):
         self.metric = metric
         self.device = device
         self.matrix: PackedMatrix | None = None
@@ -122,6 +123,16 @@ class Partition:
         self.n_rows = 0
         self._n_live = 0
         self.pos: dict[int, int] = {}
+        # Beyond-budget laddering (gated by hbm_budget_bytes): exact
+        # bf16+f32 residency while it fits, then int8 codes + exact f32
+        # re-rank (ops/quant.py), then packed int4 (ops/quant4.py), then
+        # the host rungs (host-exact for l2; host-IVF, not ported yet).
+        self.hbm_budget_bytes = hbm_budget_bytes
+        # Candidate-pool floor for the quantized rungs (the reference's
+        # ef_search analog, ``config.rs:199-201``).
+        self.quant_candidates = quant_candidates
+        self.quant = None
+        self.quant4 = None
 
     def add(self, element_id: int, vec: np.ndarray) -> None:
         if self.matrix is None:
@@ -226,7 +237,8 @@ class Partition:
     def search_many_async(self, queries: np.ndarray, k: int):
         """Dispatch a batched search; returns ``finalize() -> (ids,
         dists)``.  The exact tier defers its D2H so a serving loop can
-        overlap dispatches (``search_packed_async``)."""
+        overlap dispatches (``search_packed_async``); the quantized and
+        host tiers compute eagerly and return a pre-resolved closure."""
         b = len(queries)
         if self.matrix is None or self.live_count() == 0:
             empty = (
@@ -234,6 +246,23 @@ class Partition:
                 np.empty((b, 0), np.float64),
             )
             return lambda: empty
+        if self._use_host_ivf():
+            raise NotImplementedError(
+                "the residency ladder reached the host-IVF rung, which "
+                "helix_tpu_torch does not serve yet (ROADMAP.md Queue 1 #4)"
+            )
+        if self._use_host_exact():
+            dists, positions = self._search_host_exact(queries, k)
+            id_table = self.id_table
+            return lambda: self._map_hits(dists, positions, id_table)
+        if self._use_quant():
+            dists, positions = self._search_quant(queries, k)
+            id_table = self.id_table  # stable view; see exact tier below
+            return lambda: self._map_hits(dists, positions, id_table)
+        if self._use_quant4():
+            dists, positions = self._search_quant4(queries, k)
+            id_table = self.id_table  # stable view; see exact tier below
+            return lambda: self._map_hits(dists, positions, id_table)
         inner = search_packed_async(
             self.matrix, queries, k, valid_mask=self.live_mask
         )
@@ -275,20 +304,187 @@ class Partition:
         ids = np.where(valid, id_table[np.where(valid, positions, 0)], 0)
         return ids.astype(np.uint64), dists.astype(np.float64)
 
+    # -- residency accounting ----------------------------------------------
+
+    def _exact_resident_bytes(self) -> int:
+        # f32 + bf16 device copies of the padded matrix
+        return self.matrix.n * self.matrix.dim_pad * 6
+
+    def _quant_resident_bytes(self) -> int:
+        # int8 matrix + one f32 scale per row
+        return self.matrix.n * (self.matrix.dim_pad + 4)
+
+    def _quant4_resident_bytes(self) -> int:
+        # packed nibbles + one f32 scale per row
+        return self.matrix.n * (self.matrix.dim_pad // 2 + 4)
+
+    def _quant_dev_resident_bytes(self) -> int:
+        # int8 matrix + f16 re-rank copy + f32 scale + f32 sq norm
+        return self.matrix.n * (self.matrix.dim_pad * 3 + 8)
+
+    def _quant_rerank_device(self) -> bool:
+        """Within the int8 rung, re-rank on device when an f16 row copy
+        fits next to the int8 codes (3 B/dim total): candidates then
+        never round-trip to host memory, and the rung serves at
+        coarse-phase speed instead of host-RAM-gather speed (measured
+        ~7x at the 100k smoke config; LADDER artifact).  Override with
+        ``HELIX_QUANT_RERANK=host|device`` (auto = budget-based)."""
+        import os
+
+        mode = os.environ.get("HELIX_QUANT_RERANK", "auto")
+        if mode == "host":
+            return False
+        if mode == "device":
+            return True
+        return self._quant_dev_resident_bytes() <= self.hbm_budget_bytes
+
+    # -- int8 quantized residency tier -------------------------------------
+
+    def _use_quant(self) -> bool:
+        if self.hbm_budget_bytes is None or self.matrix is None:
+            return False
+        return (
+            self._exact_resident_bytes() > self.hbm_budget_bytes
+            and self._quant_resident_bytes() <= self.hbm_budget_bytes
+        )
+
+    def _search_quant(
+        self, queries: np.ndarray, k: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        from ..ops.quant import QuantizedResident
+
+        if self.quant is None:
+            self.quant = QuantizedResident()
+        return self.quant.search(
+            self.matrix, queries, k, self.live_mask, self.metric,
+            k_cand_floor=self.quant_candidates,
+            rerank_device=self._quant_rerank_device(),
+        )
+
+    # -- int4 packed residency tier ----------------------------------------
+
+    def _quant4_recall_serving(self) -> bool:
+        """Recall-safety gate for the int4 rung: the scale-aware
+        candidate pool (ops/quant4.recall_safe_pool_int4) must stay
+        within INT4_MAX_POOL, or the walk moves on to host-IVF; an
+        explicit quant_candidates override wider than the safe pool
+        re-enables the rung (the operator owns the trade)."""
+        from ..ops.quant4 import INT4_MAX_POOL, recall_safe_pool_int4
+
+        need = recall_safe_pool_int4(self.matrix.n)
+        if self.quant_candidates is not None \
+                and self.quant_candidates >= need:
+            return True
+        return need <= INT4_MAX_POOL
+
+    def _use_quant4(self) -> bool:
+        if self.hbm_budget_bytes is None or self.matrix is None:
+            return False
+        return (
+            self._quant_resident_bytes() > self.hbm_budget_bytes
+            and self._quant4_resident_bytes() <= self.hbm_budget_bytes
+            and self._quant4_recall_serving()
+        )
+
+    def _search_quant4(
+        self, queries: np.ndarray, k: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        from ..ops.quant4 import Int4Resident
+
+        if self.quant4 is None:
+            self.quant4 = Int4Resident()
+        return self.quant4.search(
+            self.matrix, queries, k, self.live_mask, self.metric,
+            k_cand_floor=self.quant_candidates,
+        )
+
+    # -- beyond-HBM host-IVF tier ------------------------------------------
+
+    def _use_host_exact(self) -> bool:
+        """Beyond-budget rung for non-cosine metrics: host-IVF is
+        cosine-only, and without this an over-budget l2 corpus fell
+        through to the exact tier and uploaded past the HBM budget
+        (device OOM) — the budget knob silently ignored exactly when it
+        mattered."""
+        if self.hbm_budget_bytes is None or self.metric == "cosine":
+            return False
+        if self.matrix is None:
+            return False
+        return self._quant4_resident_bytes() > self.hbm_budget_bytes
+
+    def _search_host_exact(
+        self, queries: np.ndarray, k: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Exact numpy scan on the host-resident matrix — slow but
+        correct when no device rung fits the budget."""
+        qs = self.matrix.prepare_queries(queries)
+        n = self.matrix.n
+        data = self.matrix.data[:n]
+        sims = qs @ data.T
+        if self.metric == "l2":
+            d = (
+                self.matrix.sq_norms[:n][None, :]
+                - 2.0 * sims
+                + np.sum(qs * qs, axis=1, keepdims=True)
+            )
+        else:
+            d = 1.0 - sims
+        live = self.live_mask
+        d = np.where(live[None, :], d, np.inf)
+        k_eff = min(k, n)
+        idx = np.argpartition(d, k_eff - 1, axis=1)[:, :k_eff]
+        part_d = np.take_along_axis(d, idx, axis=1)
+        order = np.argsort(part_d, axis=1, kind="stable")
+        return (
+            np.take_along_axis(part_d, order, axis=1).astype(np.float64),
+            np.take_along_axis(idx, order, axis=1).astype(np.int64),
+        )
+
+    def _use_host_ivf(self) -> bool:
+        if self.hbm_budget_bytes is None or self.metric != "cosine":
+            return False
+        if self.matrix is None:
+            return False
+        return (
+            self._exact_resident_bytes() > self.hbm_budget_bytes
+            and self._quant_resident_bytes() > self.hbm_budget_bytes
+            and (
+                self._quant4_resident_bytes() > self.hbm_budget_bytes
+                # int4 fits but cannot hold the recall floor at a
+                # serviceable pool: fall past it, never below 0.95
+                or not self._quant4_recall_serving()
+            )
+        )
+
 
 class VectorIndex:
     """All partitions of one declared (kind, label, property) index."""
 
-    def __init__(self, defn: IndexDef, metric: str, *, device: torch.device):
+    def __init__(
+        self,
+        defn: IndexDef,
+        metric: str,
+        hbm_budget_bytes: int | None = None,
+        quant_candidates: int | None = None,
+        *,
+        device: torch.device,
+    ):
         self.defn = defn
         self.metric = metric
         self.device = device
+        self.hbm_budget_bytes = hbm_budget_bytes
+        self.quant_candidates = quant_candidates
         self.partitions: dict[tuple, Partition] = {}
 
     def partition_for(self, tenant: tuple) -> Partition:
         part = self.partitions.get(tenant)
         if part is None:
-            part = Partition(self.metric, device=self.device)
+            part = Partition(
+                self.metric,
+                hbm_budget_bytes=self.hbm_budget_bytes,
+                quant_candidates=self.quant_candidates,
+                device=self.device,
+            )
             self.partitions[tenant] = part
         return part
 
@@ -432,11 +628,15 @@ class VectorManager:
         self,
         metric: str = "cosine",
         batch_window_ms: float | None = None,
+        hbm_budget_bytes: int | None = None,
+        quant_candidates: int | None = None,
         *,
         device: torch.device,
     ):
         self.metric = metric
         self.device = device
+        self.hbm_budget_bytes = hbm_budget_bytes
+        self.quant_candidates = quant_candidates
         self.indexes: dict[tuple, VectorIndex] = {}
         self.batcher = None
         if batch_window_ms is not None:
@@ -449,7 +649,12 @@ class VectorManager:
     def on_index_created(self, store: GraphStore, defn: IndexDef) -> None:
         if defn.spec_tag not in ("NodeVector", "EdgeVector"):
             return
-        index = VectorIndex(defn, self.metric, device=self.device)
+        index = VectorIndex(
+            defn, self.metric,
+            hbm_budget_bytes=self.hbm_budget_bytes,
+            quant_candidates=self.quant_candidates,
+            device=self.device,
+        )
         self.indexes[defn.key()] = index
         table = (
             store.nodes_by_label.get(defn.label, ())

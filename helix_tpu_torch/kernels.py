@@ -3,9 +3,11 @@
 The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
 shared library with a plain C interface and loaded with :mod:`ctypes`,
 at first use and never at import (the CPU test suite imports every
-module and has no ``nvcc``).  The library lands in ``_build/`` next to
-this file, named by a hash of the sources and the compile command, so an
-edited ``.cu`` rebuilds and concurrent cold builds never share a file.
+module and has no ``nvcc``).  Each source compiles in its own ``nvcc``
+process, all started together, and one more links them.  The library
+lands in ``_build/`` next to this file, named by a hash of the sources,
+the shared header and the compile command, so an edited ``.cu`` or
+``.cuh`` rebuilds and concurrent cold builds never share a file.
 
 No ``--use_fast_math``: it flushes denormals in every float operation,
 and the bucket-scores kernel reproduces the reference's denormal rule
@@ -23,11 +25,16 @@ import threading
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "csrc" / "bucket_scores.cu",)
+SOURCES = (
+    _HERE / "csrc" / "bucket_scores.cu",
+    _HERE / "csrc" / "i8_bucket_scores.cu",
+    _HERE / "csrc" / "i4_bucket_scores.cu",
+)
+HEADERS = (_HERE / "csrc" / "int8_tile.cuh",)
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _LOCK = threading.Lock()
@@ -52,7 +59,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libhxcuda-{h.hexdigest()[:16]}.so"
@@ -65,15 +72,39 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    tag = f"tmp{os.getpid()}"
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in SOURCES]
+    tmp = out.with_suffix(f".{tag}.so")
+    compiles = [
+        [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        for src, obj in zip(SOURCES, objs)
+    ]
+    try:
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for cmd in compiles
+        ]
+        outputs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, text in zip(compiles, procs, outputs):
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"kernel build failed: {' '.join(cmd)}\n{text}"
+                )
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                *[str(o) for o in objs]]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"kernel link failed: {' '.join(link)}\n{proc.stdout}"
+                f"{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"kernel build failed: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -89,6 +120,18 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
+        ]
+        lib.hx_i8_bucket_scores.restype = ctypes.c_int
+        lib.hx_i8_bucket_scores.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.hx_i4_bucket_scores.restype = ctypes.c_int
+        lib.hx_i4_bucket_scores.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         _LIB = lib
         return lib

@@ -49,17 +49,50 @@ NEG_SENTINEL = -3.0e38
 MIN_QUERY_BLOCK = 128
 MAX_QUERY_BLOCK = 256
 
-# What the Hopper kernel takes (csrc/bucket_scores.cu): rows in 128-row
-# blocks (TILE padding guarantees it), queries in 128-query tiles, and
-# the feature dim in 64-column shared-memory stages.  Shared memory does
-# not grow with D, so unlike the TPU's VMEM tile budget there is no
-# upper bound on the width.
+# What the Hopper kernels take (csrc/bucket_scores.cu, and the int8 and
+# int4 kernels through csrc/int8_tile.cuh): rows in 128-row blocks (TILE
+# padding guarantees it), queries in 128-query tiles, and the feature dim
+# (packed bytes for int4) in 64-column shared-memory stages.  Shared
+# memory does not grow with D, so unlike the TPU's VMEM tile budget there
+# is no upper bound on the width.
 KERNEL_ROWS = 128
 KERNEL_QUERIES = 128
 KERNEL_DEPTH = 64
 
 _EXP_MASK = 0x7F800000
 _SIGN_BIT = -(1 << 31)  # 0x80000000 as int32
+
+
+def _flush_denormals(bits: torch.Tensor) -> torch.Tensor:
+    """The denormal rule on int32 float bits: |v| < FLT_MIN -> signed 0."""
+    return torch.where((bits & _EXP_MASK) == 0, bits & _SIGN_BIT, bits)
+
+
+def mask_pack_reduce(sims: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """The epilogue shared by the plain versions of all three kernels
+    (the reference's ``bucket_reduce_packed``, with the row mask in
+    front): rows ``>= n_valid`` of the f32 score tile ``sims [N, B]``
+    become ``NEG_SENTINEL``, each score's low mantissa bits take its
+    in-bucket row index, denormals flush, and a float max over each
+    ``BUCKET``-row window gives ``[N / BUCKET, B]``."""
+    n, b = sims.shape
+    rows = torch.arange(n, device=sims.device, dtype=torch.int32)[:, None]
+    sims = torch.where(rows < n_valid, sims, NEG_SENTINEL)
+    packed = (sims.view(torch.int32) & ~(BUCKET - 1)) | (rows & (BUCKET - 1))
+    packed = _flush_denormals(packed)
+    return packed.view(torch.float32).view(n // BUCKET, BUCKET, b).amax(dim=1)
+
+
+def descale_packed(winners: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Multiply packed winners ``[buckets, B]`` by positive per-bucket
+    ``scales [buckets, 1]`` and keep the in-bucket index: split the index
+    bits off, multiply the cleaned score (one f32 multiply), re-pack, and
+    apply the denormal rule again (reference ``descale_packed``)."""
+    mask = BUCKET - 1
+    bits = winners.view(torch.int32)
+    clean = (bits & ~mask).view(torch.float32)
+    scaled = (clean * scales).view(torch.int32)
+    return _flush_denormals((scaled & ~mask) | (bits & mask)).view(torch.float32)
 
 
 def bucket_scores_reference(
@@ -69,16 +102,8 @@ def bucket_scores_reference(
     packed winners for ``xs16 [N, D]`` and ``qs16 [B, D]`` (bf16).
 
     A float32 product of the bf16-rounded inputs (exact products, f32
-    sums), the row mask, the pack, the denormal flush and the bucket
-    max."""
-    n = xs16.shape[0]
-    b = qs16.shape[0]
-    sims = xs16.float() @ qs16.float().T
-    rows = torch.arange(n, device=xs16.device, dtype=torch.int32)[:, None]
-    sims = torch.where(rows < n_valid, sims, NEG_SENTINEL)
-    packed = (sims.view(torch.int32) & ~(BUCKET - 1)) | (rows & (BUCKET - 1))
-    packed = torch.where((packed & _EXP_MASK) == 0, packed & _SIGN_BIT, packed)
-    return packed.view(torch.float32).view(n // BUCKET, BUCKET, b).amax(dim=1)
+    sums), then :func:`mask_pack_reduce`."""
+    return mask_pack_reduce(xs16.float() @ qs16.float().T, n_valid)
 
 
 def bucket_scores(

@@ -1,0 +1,451 @@
+"""int8 quantized residency tier (PyTorch port of ``helix_tpu/ops/quant.py``).
+
+The rung of the residency ladder below the exact tier: cosine rows
+quantize to int8 with one global scale (``rint(127 x)``, 1 byte/dim), l2
+rows keep per-row scales.  The coarse phase picks candidates from integer
+dot products; candidates then re-rank exactly in f32 against the host
+matrix (the native C++ re-rank), or against an f16 device copy
+(:func:`device_rerank_topk`) when the budget has room for it.
+
+Two coarse paths, routed as the reference routes them
+(:meth:`QuantizedResident.search`):
+
+- :func:`int8_fused_coarse`, the packed bucket-max path: on a CUDA tensor
+  its wrapper :func:`i8_bucket_scores` launches the hand-written Hopper
+  kernel ``csrc/i8_bucket_scores.cu`` (or raises); on a CPU tensor it
+  runs :func:`i8_bucket_scores_reference`, the plain version the tests
+  hold against the JAX kernel bit for bit.
+- :func:`int8_coarse_topk`, the unfused path (l2, fewer than 8192 rows,
+  or a pool wider than the bucket count).  The reference computes its
+  product in XLA, outside any kernel; here it is ``torch._int_mm`` on
+  CUDA and an exact float64 product on the CPU (:func:`int_dots`).
+
+Deliberate differences from the reference:
+
+- ``approx_max_k`` becomes an exact top-k (``_top_k`` in the unfused
+  path, ``torch.topk`` over the bucket winners, as ``fused_topk`` does).
+- The fused path serves a CUDA device with cosine rows, ``n >= TILE`` and
+  ``dim_pad % 128 == 0``; the TPU's VMEM tile cap does not bind Hopper.
+- One device: the mesh search (``ShardedInt8Search``) is the multi-GPU
+  slice's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .distance import _round_up, _top_k, require_fp32_matmul
+from .fused_topk import (
+    _LAUNCH_LOCK,
+    BUCKET,
+    KERNEL_DEPTH,
+    KERNEL_QUERIES,
+    KERNEL_ROWS,
+    MAX_QUERY_BLOCK,
+    MIN_QUERY_BLOCK,
+    TILE,
+    mask_pack_reduce,
+    pad_rows_for_fused,
+)
+
+
+
+
+def quantize_rows(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-row int8: ``(values int8 [N, D], scales f32 [N])``.
+    Zero rows get scale 1 (values all zero)."""
+    peak = np.abs(rows).max(axis=1)
+    scales = np.where(peak > 0, peak / 127.0, 1.0).astype(np.float32)
+    values = np.clip(
+        np.rint(rows / scales[:, None]), -127, 127
+    ).astype(np.int8)
+    return values, scales
+
+
+# One quantization step for unit-norm rows: every |x| <= 1, so
+# ``rint(127 x)`` is always a valid int8 and the de-scale is this
+# single constant.
+GLOBAL_SCALE = np.float32(1.0 / 127.0)
+
+
+def _quantize_queries(qs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Device-side symmetric per-query int8: ``(q_i8, scales)``.
+
+    The reference runs this under ``jit``, where XLA rewrites its
+    ``q_peak / 127.0`` (a division by a constant) into a multiply by the
+    f32 reciprocal, so the scale here is that product.  The queries are
+    then divided by their scale, as in the reference (a division by a
+    value, which XLA keeps); ``torch.round`` rounds half to even like
+    ``jnp.round``."""
+    q_peak = qs.abs().amax(dim=1)
+    q_scales = torch.where(q_peak > 0, q_peak * float(GLOBAL_SCALE), 1.0)
+    q_i8 = torch.clamp(torch.round(qs / q_scales[:, None]), -127, 127)
+    return q_i8.to(torch.int8), q_scales
+
+
+def quantize_rows_unit(rows: np.ndarray) -> np.ndarray:
+    """Global-scale symmetric int8 for unit-norm (cosine) rows.
+    De-scale with :data:`GLOBAL_SCALE`.  Correct because ``PackedMatrix``
+    normalises cosine rows (|x| <= 1) and the clip keeps a component of
+    exactly +-1 at +-127."""
+    return np.clip(np.rint(rows * 127.0), -127, 127).astype(np.int8)
+
+
+def int_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``a @ b.T`` for int8 ``a [M, D]`` and ``b [N, D]``.
+
+    CUDA: ``torch._int_mm``, which wants M > 16 and D, N multiples of 8;
+    ``a`` is padded with zero rows to a multiple of 8 above 16.  CPU: a
+    float64 product, exact since every partial sum is an integer below
+    2^53 (a float32 one is exact only while 127^2 * D <= 2^24, D <= 1040).
+    """
+    m, d = a.shape
+    if a.device.type == "cuda":
+        if d % 8 or b.shape[0] % 8:
+            raise ValueError(
+                f"int_dots on CUDA needs D and N multiples of 8, got D={d} "
+                f"N={b.shape[0]}"
+            )
+        m_pad = max(24, _round_up(m, 8))
+        if m_pad != m:
+            a = torch.nn.functional.pad(a, (0, 0, 0, m_pad - m))
+        return torch._int_mm(a, b.t())[:m]
+    return (a.double() @ b.double().T).to(torch.int32)
+
+
+def int8_coarse_topk(
+    xs_i8: torch.Tensor,       # [N, D] int8 resident matrix
+    x_scales: torch.Tensor,    # [N] f32 per-row scales
+    qs: torch.Tensor,          # [B, D] f32 query batch
+    n_valid: int,
+    sq_norms: torch.Tensor,    # [N] f32 squared norms (l2 only)
+    *,
+    k: int,
+    metric: str = "cosine",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantized coarse phase: (approx similarities [B, k], indices).
+
+    Queries quantize per query; the exact integer dot de-scales to f32
+    similarity ``~ q . x`` (l2 uses the ``2 q.x - |x|^2`` ordering
+    surrogate)."""
+    n = xs_i8.shape[0]
+    q_i8, q_scales = _quantize_queries(qs)
+    dots = int_dots(q_i8, xs_i8)                        # [B, N]
+    sims = dots.float() * q_scales[:, None] * x_scales[None, :]
+    if metric == "l2":
+        sims = 2.0 * sims - sq_norms[None, :]
+    cols = torch.arange(n, device=xs_i8.device)
+    sims = torch.where((cols < n_valid)[None, :], sims, float("-inf"))
+    return _top_k(sims, k)
+
+
+def device_rerank_topk(
+    xs16: torch.Tensor,        # [N16, D] f16 resident rows (re-rank operand)
+    sq_norms: torch.Tensor,    # [N16] f32 squared norms (l2 only)
+    qs: torch.Tensor,          # [B, D] f32 query batch
+    cand: torch.Tensor,        # [B, Kc] coarse candidates (junk allowed)
+    live: torch.Tensor,        # [N16] uint8 device live mask (1 = live)
+    n_valid: int,
+    *,
+    k: int,
+    metric: str = "cosine",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """On-device re-rank of coarse candidates against the f16 row copy:
+    a gather and an f32 einsum (TF32 off).  Returns ``(dists [B, min(k,
+    Kc)], positions)`` ascending, with +inf / -1 for dead or out-of-range
+    candidates."""
+    require_fp32_matmul()
+    n16 = xs16.shape[0]
+    safe = cand.clamp(0, n16 - 1)
+    rows = xs16[safe].float()                           # [B, Kc, D]
+    sims = torch.einsum("bkd,bd->bk", rows, qs)
+    if metric == "l2":
+        sims = 2.0 * sims - sq_norms[safe]
+    ok = (cand >= 0) & (cand < n_valid) & (live[safe] != 0)
+    sims = torch.where(ok, sims, float("-inf"))
+    k_eff = min(k, cand.shape[1])
+    best_s, pos = _top_k(sims, k_eff)
+    best_i = torch.gather(cand, 1, pos)
+    good = best_s > float("-inf")
+    best_i = torch.where(good, best_i, -1)
+    if metric == "cosine":
+        dists = 1.0 - best_s
+    else:
+        q_sq = torch.sum(qs * qs, dim=1, keepdim=True)
+        dists = -best_s + q_sq
+    dists = torch.where(good, dists, float("inf"))
+    return dists, best_i
+
+
+def _padded_rows(matrix, n_rows: int) -> np.ndarray:
+    """``matrix.data[:n_rows]``, zero-padded when the host buffer is
+    shorter."""
+    rows = matrix.data[:n_rows]
+    if n_rows > len(matrix.data):
+        padded = np.zeros((n_rows, matrix.data.shape[1]), np.float32)
+        padded[: matrix.n] = matrix.data[: matrix.n]
+        rows = padded
+    return rows
+
+
+def _sq_device(matrix, n_rows: int) -> torch.Tensor:
+    """The l2 de-scale operand on the device; cosine never reads it, so
+    a 1-element dummy avoids an N-sized upload."""
+    if matrix.metric != "l2":
+        return torch.zeros(1, device=matrix.device)
+    sq = np.zeros(n_rows, np.float32)
+    sq[: matrix.n] = matrix.sq_norms[: matrix.n]
+    return torch.from_numpy(sq).to(matrix.device)
+
+
+def use_fused(matrix) -> bool:
+    """The fused kernels' gate (int8 and int4): a CUDA device, cosine
+    rows, at least one ``TILE`` of them, and a width the kernels stage
+    (``dim_pad % 128 == 0``)."""
+    return (
+        matrix.device.type == "cuda"
+        and matrix.metric == "cosine"
+        and matrix.n >= TILE
+        and matrix.dim_pad % 128 == 0
+    )
+
+
+class QuantizedResident:
+    """Device-resident int8 copy of a packed matrix, refreshed by
+    version (same scheme as PackedMatrix's bf16 cache)."""
+
+    def __init__(self):
+        # (version, xs_i8, scales, sq_dev)
+        self._cached: tuple | None = None
+        # (matrix version, live count, device uint8 mask)
+        self._live_dev: tuple | None = None
+        # (version, xs_f16, sq_dev): the 2-byte/dim device re-rank copy
+        self._rr16: tuple | None = None
+
+    def arrays(self, matrix) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        cached = self._cached
+        if cached is not None and cached[0] == matrix.version:
+            return cached[1], cached[2], cached[3]
+        n_rows = _round_up(max(matrix.n, 1), matrix.ROW_PAD)
+        if use_fused(matrix):
+            n_rows = pad_rows_for_fused(matrix.n)
+        rows = _padded_rows(matrix, n_rows)
+        if matrix.metric == "cosine":
+            values = quantize_rows_unit(rows)
+            scales = np.full(n_rows, GLOBAL_SCALE, np.float32)
+        else:
+            values, scales = quantize_rows(rows)
+        xs_i8 = matrix._upload(values, n_rows, torch.int8)
+        sc = torch.from_numpy(scales).to(matrix.device)
+        sq_dev = _sq_device(matrix, n_rows)
+        self._cached = (matrix.version, xs_i8, sc, sq_dev)
+        return xs_i8, sc, sq_dev
+
+    def rerank_arrays(self, matrix) -> tuple[torch.Tensor, torch.Tensor]:
+        """(f16 row copy, f32 squared norms) for the device re-rank,
+        version-keyed like the int8 arrays.  The f16 cast happens on the
+        host, which halves the bytes moved."""
+        cached = self._rr16
+        if cached is not None and cached[0] == matrix.version:
+            return cached[1], cached[2]
+        n_rows = _round_up(max(matrix.n, 1), matrix.ROW_PAD)
+        host16 = matrix.data[: matrix.n].astype(np.float16)
+        xs16 = matrix._upload(host16, n_rows, torch.float16)
+        sq = _sq_device(matrix, n_rows)
+        self._rr16 = (matrix.version, xs16, sq)
+        return xs16, sq
+
+    def _live_device(self, matrix, live_mask: np.ndarray,
+                     n_rows: int) -> torch.Tensor:
+        """Device uint8 live mask padded to ``n_rows`` (padding dead)."""
+        n_live = int(live_mask.sum())
+        cached = self._live_dev
+        if (
+            cached is not None
+            and cached[0] == matrix.version
+            and cached[1] == n_live
+            and cached[2].shape[0] >= n_rows
+        ):
+            return cached[2]
+        mask = np.zeros(n_rows, np.uint8)
+        mask[: len(live_mask)] = live_mask
+        dev = torch.from_numpy(mask).to(matrix.device)
+        self._live_dev = (matrix.version, n_live, dev)
+        return dev
+
+    def search(
+        self, matrix, queries: np.ndarray, k: int, live_mask: np.ndarray,
+        metric: str, k_cand_floor: int | None = None,
+        rerank_device: bool = False,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Coarse int8 top-k + exact f32 re-rank (host or device).
+
+        Returns (distances [B, k], positions) ascending, tombstones
+        dropped via the re-rank's sentinel path.  ``k_cand_floor``
+        widens the re-ranked candidate pool; ``rerank_device`` re-scores
+        against the f16 device copy instead of the host f32 matrix."""
+        n = matrix.n
+        xs_i8, scales, sq_dev = self.arrays(matrix)
+        qs = matrix.prepare_queries(queries)
+        qs_dev = torch.from_numpy(qs).to(matrix.device)
+        k_cand = min(max(8 * k, 64, k_cand_floor or 0), n)
+        # The fused kernel yields one candidate per 64-row bucket; when
+        # that cannot supply the pool, the unfused path serves it.
+        if (
+            use_fused(matrix)
+            and xs_i8.shape[0] % TILE == 0
+            and k_cand <= xs_i8.shape[0] // BUCKET
+        ):
+            _, cand = int8_fused_coarse(xs_i8, qs_dev, n, k=k_cand)
+        else:
+            _, cand = int8_coarse_topk(
+                xs_i8, scales, qs_dev, n, sq_dev, k=k_cand, metric=metric,
+            )
+        if rerank_device:
+            xs16, sq16 = self.rerank_arrays(matrix)
+            live = self._live_device(matrix, live_mask, int(xs16.shape[0]))
+            dists, pos = device_rerank_topk(
+                xs16, sq16, qs_dev, cand, live, n, k=k, metric=metric,
+            )
+            return dists.cpu().numpy(), pos.cpu().numpy().astype(np.int64)
+        from helix_tpu.native import rerank as native_rerank
+
+        cand = cand.cpu().numpy().astype(np.int64)
+        cand = np.where(
+            (cand < n) & live_mask[np.clip(cand, 0, n - 1)], cand, -1
+        )
+        return native_rerank(
+            matrix.data[:n], matrix.sq_norms[:n], qs, cand, k, metric
+        )
+
+
+# ---------------------------------------------------------------- fused
+
+
+def i8_bucket_scores_reference(
+    xs_i8: torch.Tensor, q_i8: torch.Tensor, n_valid: int
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: ``[N / BUCKET, B]`` f32
+    packed winners for int8 ``xs_i8 [N, D]`` and ``q_i8 [B, D]``: exact
+    integer dots, converted to f32, then the shared mask, pack, flush and
+    bucket max."""
+    return mask_pack_reduce(int_dots(xs_i8, q_i8).float(), n_valid)
+
+
+def check_kernel_operands(name: str, operands: dict, dtypes: dict) -> None:
+    """Raise unless every operand is a contiguous, 16-byte aligned CUDA
+    tensor of its dtype, all on one device."""
+    device = next(iter(operands.values())).device
+    for key, t in operands.items():
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(
+                f"{name} needs every operand on one CUDA device, got {key} "
+                f"on {t.device}"
+            )
+        if t.dtype != dtypes[key]:
+            raise TypeError(f"{name}: {key} must be {dtypes[key]}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+
+
+def count_launch(wrapper) -> None:
+    with _LAUNCH_LOCK:  # searches may run on several threads
+        wrapper.launches += 1
+
+
+def i8_bucket_scores(
+    xs_i8: torch.Tensor, q_i8: torch.Tensor, n_valid: int
+) -> torch.Tensor:
+    """``[N / BUCKET, B]`` f32 packed winners over int8 codes.
+
+    CUDA tensors launch ``csrc/i8_bucket_scores.cu`` on the current stream
+    and count the launch in ``i8_bucket_scores.launches``; CPU tensors
+    run :func:`i8_bucket_scores_reference`.  Anything the kernel does not
+    take raises."""
+    if xs_i8.device.type == "cpu" and q_i8.device.type == "cpu":
+        return i8_bucket_scores_reference(xs_i8, q_i8, n_valid)
+    check_kernel_operands(
+        "i8_bucket_scores", {"xs_i8": xs_i8, "q_i8": q_i8},
+        {"xs_i8": torch.int8, "q_i8": torch.int8},
+    )
+    if xs_i8.dim() != 2 or q_i8.dim() != 2 or xs_i8.shape[1] != q_i8.shape[1]:
+        raise ValueError(
+            f"i8_bucket_scores shapes: xs [N, D] and q [B, D], got "
+            f"{tuple(xs_i8.shape)} and {tuple(q_i8.shape)}"
+        )
+    n, d = xs_i8.shape
+    b = q_i8.shape[0]
+    if n == 0 or n % KERNEL_ROWS or d == 0 or d % KERNEL_DEPTH \
+            or b == 0 or b % KERNEL_QUERIES or n >= 1 << 31:
+        raise ValueError(
+            f"i8_bucket_scores needs N % {KERNEL_ROWS} == 0 (N < 2^31), "
+            f"D % {KERNEL_DEPTH} == 0 and B % {KERNEL_QUERIES} == 0 (all > "
+            f"0), got N={n} D={d} B={b}"
+        )
+    n_valid = max(0, min(int(n_valid), n))
+    out = torch.empty((n // BUCKET, b), dtype=torch.float32,
+                      device=xs_i8.device)
+    lib = kernels.load()
+    with torch.cuda.device(xs_i8.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hx_i8_bucket_scores(
+            xs_i8.data_ptr(), q_i8.data_ptr(), out.data_ptr(), n, d, b,
+            n_valid, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"i8_bucket_scores kernel launch failed: CUDA error {rc}"
+        )
+    count_launch(i8_bucket_scores)
+    return out
+
+
+i8_bucket_scores.launches = 0
+
+
+def fused_coarse(bucket_scores_fn, n_rows: int, qs: torch.Tensor, *,
+                 k: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The query loop the int8 and int4 fused paths share: queries in
+    chunks of at most 256, padded to 128, quantized per query;
+    ``bucket_scores_fn(q_i8)`` gives ``[buckets, b_pad]`` winners, whose
+    top ``k`` (at most one per bucket) become row ids.  Returns
+    ``(winners [B, k], per-query scales [B, 1], ids [B, k])``."""
+    b_in = qs.shape[0]
+    k_cand = min(k, n_rows // BUCKET)
+    out_s, out_q, out_i = [], [], []
+    for lo in range(0, b_in, MAX_QUERY_BLOCK):
+        chunk = qs[lo:lo + MAX_QUERY_BLOCK]
+        b = chunk.shape[0]
+        b_pad = max(MIN_QUERY_BLOCK, ((b + 127) // 128) * 128)
+        if b_pad != b:
+            chunk = torch.nn.functional.pad(chunk, (0, 0, 0, b_pad - b))
+        q_i8, q_scales = _quantize_queries(chunk)
+        vals = bucket_scores_fn(q_i8).T                  # [b_pad, buckets]
+        best_s, pos = torch.topk(vals, k_cand, dim=1)
+        arg = best_s.view(torch.int32) & (BUCKET - 1)
+        out_s.append(best_s[:b])
+        out_q.append(q_scales[:b, None])
+        out_i.append((pos * BUCKET + arg)[:b])
+    return torch.cat(out_s), torch.cat(out_q), torch.cat(out_i)
+
+
+def int8_fused_coarse(
+    xs_i8: torch.Tensor,       # [N, D] int8 (global scale), rows padded to TILE
+    qs: torch.Tensor,          # [B, D] f32
+    n_valid: int,
+    *,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused int8 coarse candidates: (de-scaled packed scores [B, k], row
+    ids).  Cosine only; ``xs_i8`` holds :func:`quantize_rows_unit` codes.
+    The scores still carry the index bits in their mantissas, as the
+    reference's do; callers read only the ids."""
+    best_s, q_scales, ids = fused_coarse(
+        lambda q_i8: i8_bucket_scores(xs_i8, q_i8, n_valid),
+        xs_i8.shape[0], qs, k=k,
+    )
+    return best_s * (float(GLOBAL_SCALE) * q_scales), ids

@@ -1,0 +1,368 @@
+"""The port's int8 rung (``helix_tpu_torch/ops/quant.py``) against the JAX
+reference (``helix_tpu/ops/quant.py``).
+
+Inputs come from numpy seeds and go through both packages; the Pallas
+kernel runs in interpret mode, on one device.
+
+Tolerances:
+
+- quantizers, the plain kernel version and the unfused coarse scores:
+  equal bit for bit (exact integer dots, the same f32 operations);
+- candidate ids of the fused and unfused coarse paths: equal as sets,
+  leaving out entries tied with the k-th value (integer scores tie often;
+  the two top-k implementations order ties differently);
+- final hits: equal positions on seeds with no boundary tie; distances
+  equal after the host re-rank (the same native code) and within 1e-6
+  after the f16 device re-rank (f32 sums in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import helix_tpu.ops.quant as JQ
+from helix_tpu.ops.distance import PackedMatrix as RefMatrix
+from helix_tpu_torch.convert import (
+    packed_matrix_from_reference,
+    quantized_resident_from_reference,
+)
+from helix_tpu_torch.ops import quant as TQ
+
+torch.set_num_threads(2)
+
+RERANK_TOL = 1e-6
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode(monkeypatch):
+    from jax.experimental import pallas as pl
+
+    original = pl.pallas_call
+
+    def interpreted(*args, **kwargs):
+        kwargs["interpret"] = True
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", interpreted)
+    fns = (JQ._i8_bucket_scores, JQ.int8_fused_coarse)
+    for fn in fns:
+        fn.clear_cache()
+    yield
+    for fn in fns:
+        fn.clear_cache()
+
+
+def unit_rows(n, d, seed, clusters=64):
+    """Clustered unit rows (``bench.py``'s generator at test size)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(clusters, d)).astype(np.float32)
+    rows = centers[rng.integers(0, clusters, size=n)] \
+        + 0.3 * rng.normal(size=(n, d)).astype(np.float32)
+    return rows / np.linalg.norm(rows, axis=1, keepdims=True)
+
+
+def jax_q(qs):
+    """The reference's query quantizer as it runs, under ``jit``."""
+    import jax
+    import jax.numpy as jnp
+
+    q_i8, q_scales = jax.jit(JQ._quantize_queries)(jnp.asarray(qs))
+    return np.asarray(q_i8), np.asarray(q_scales)
+
+
+def bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_quantizers_match_reference(d):
+    rows = unit_rows(2048, d, seed=d)
+    rng = np.random.default_rng(d + 1)
+    raw = rng.normal(size=(512, d)).astype(np.float32) * 3.0
+    raw[7] = 0.0  # zero row: scale 1
+    np.testing.assert_array_equal(TQ.quantize_rows_unit(rows),
+                                  JQ.quantize_rows_unit(rows))
+    for got, want in zip(TQ.quantize_rows(raw), JQ.quantize_rows(raw)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    qs = rng.normal(size=(130, d)).astype(np.float32)
+    qs[3] = 0.0
+    q_i8, q_scales = TQ._quantize_queries(torch.from_numpy(qs))
+    want_i8, want_scales = jax_q(qs)
+    np.testing.assert_array_equal(q_i8.numpy(), want_i8)
+    np.testing.assert_array_equal(bits(q_scales.numpy()), bits(want_scales))
+    assert TQ.GLOBAL_SCALE == JQ.GLOBAL_SCALE
+
+
+def test_unit_row_with_a_component_of_one():
+    """A normalised row can hold a component of exactly +-1: the global
+    scale maps it to +-127 (the clip keeps it in range), as in the
+    reference."""
+    rows = np.zeros((4, 128), np.float32)
+    rows[0, 3] = 1.0
+    rows[1, 100] = -1.0
+    rows[2, :2] = np.float32(np.sqrt(0.5))
+    codes = TQ.quantize_rows_unit(rows)
+    np.testing.assert_array_equal(codes, JQ.quantize_rows_unit(rows))
+    assert codes[0, 3] == 127 and codes[1, 100] == -127
+    assert np.abs(codes.astype(np.int32)).max() == 127
+
+
+def jax_i8_bucket_scores(xi, q_i8, n_valid):
+    import jax.numpy as jnp
+
+    return np.asarray(JQ._i8_bucket_scores(
+        jnp.asarray(xi), jnp.asarray(q_i8), jnp.int32(n_valid)))
+
+
+@pytest.mark.parametrize("n,n_valid,d,seed", [
+    (16384, 16384 - 300, 128, 0),
+    (24576, 24576 - 8192 - 64, 64, 1),
+])
+def test_i8_bucket_scores_reference_matches_pallas_bitwise(n, n_valid, d,
+                                                           seed):
+    xi = TQ.quantize_rows_unit(unit_rows(n, d, seed))
+    q_i8, _ = jax_q(unit_rows(128, d, seed + 10))
+    want = jax_i8_bucket_scores(xi, q_i8, n_valid)
+    got = TQ.i8_bucket_scores(torch.from_numpy(xi), torch.from_numpy(q_i8),
+                              n_valid).numpy()
+    assert got.shape == want.shape == (n // 64, 128)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    # buckets past the masked tail carry the sentinel on both sides
+    assert np.all(got[(n_valid + 63) // 64:] < -1e38)
+
+
+def test_i8_bucket_scores_flushes_a_zero_row_like_the_reference():
+    """Bucket 0 scores negative for query 0 except a zeroed (tombstone)
+    row, whose packed denormal flushes to +0 with index bits 0."""
+    xi = TQ.quantize_rows_unit(unit_rows(16384, 128, seed=5))
+    q_i8, _ = jax_q(unit_rows(128, 128, seed=6))
+    xi[:64] = (-np.sign(q_i8[0]) * 90).astype(np.int8)
+    xi[9] = 0
+    want = jax_i8_bucket_scores(xi, q_i8, 16384)
+    got = TQ.i8_bucket_scores(torch.from_numpy(xi), torch.from_numpy(q_i8),
+                              16384).numpy()
+    assert bits(want)[0, 0] == 0
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+def test_i8_bucket_scores_counts_only_kernel_launches():
+    xi = torch.zeros((8192, 128), dtype=torch.int8)
+    q = torch.zeros((128, 128), dtype=torch.int8)
+    before = TQ.i8_bucket_scores.launches
+    TQ.i8_bucket_scores(xi, q, 8192)
+    assert TQ.i8_bucket_scores.launches == before  # CPU: the plain version
+
+
+def test_i8_bucket_scores_refuses_other_devices():
+    xs = torch.empty((8192, 128), dtype=torch.int8, device="meta")
+    q = torch.empty((128, 128), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        TQ.i8_bucket_scores(xs, q, 8192)
+
+
+def boundary_ids(ids, vals_t, k):
+    """Split each query's candidate ids into those strictly above the
+    k-th bucket winner (must match exactly) and those tied with it."""
+    kth = -np.sort(-vals_t, axis=1)[:, k - 1:k]
+    win = np.take_along_axis(vals_t, ids // 64, axis=1)
+    return [set(ids[j][win[j] > kth[j]].tolist()) for j in range(len(ids))], \
+        [bool(np.all(win[j] >= kth[j])) for j in range(len(ids))]
+
+
+def test_int8_fused_coarse_matches_reference():
+    import jax.numpy as jnp
+
+    n, d, k, n_valid = 16384, 128, 80, 16000
+    xi = TQ.quantize_rows_unit(unit_rows(n, d, seed=7))
+    qs = unit_rows(130, d, seed=8)  # two query chunks
+    _, want = JQ.int8_fused_coarse(jnp.asarray(xi), jnp.asarray(qs),
+                                   jnp.int32(n_valid), k=k, interpret=True)
+    _, got = TQ.int8_fused_coarse(torch.from_numpy(xi), torch.from_numpy(qs),
+                                  n_valid, k=k)
+    want, got = np.asarray(want), got.numpy()
+    assert got.shape == want.shape == (130, k)
+    q_i8, _ = jax_q(np.pad(qs, ((0, 126), (0, 0))))
+    vals = np.concatenate([
+        jax_i8_bucket_scores(xi, q_i8[:128], n_valid).T,
+        jax_i8_bucket_scores(xi, q_i8[128:], n_valid).T,
+    ])[:130]
+    strict_got, ok_got = boundary_ids(got, vals, k)
+    strict_want, ok_want = boundary_ids(want, vals, k)
+    assert all(ok_got) and all(ok_want)
+    assert strict_got == strict_want
+    assert all(len(set(r.tolist())) == k for r in got)
+    assert np.all(got < n_valid)
+
+
+def jax_coarse(xi, scales, qs, n_valid, sq, k, metric):
+    import jax.numpy as jnp
+
+    s, i = JQ.int8_coarse_topk(jnp.asarray(xi), jnp.asarray(scales),
+                               jnp.asarray(qs), jnp.int32(n_valid),
+                               jnp.asarray(sq), k=k, metric=metric)
+    return np.asarray(s), np.asarray(i)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_int8_coarse_topk_matches_reference(metric, d):
+    n, n_valid, k = 16384, 16000, 64
+    rows = unit_rows(n, d, seed=d)
+    if metric == "l2":
+        rows = rows * np.random.default_rng(1).uniform(
+            0.5, 2.0, size=(n, 1)).astype(np.float32)
+        xi, scales = JQ.quantize_rows(rows)
+    else:
+        xi = JQ.quantize_rows_unit(rows)
+        scales = np.full(n, JQ.GLOBAL_SCALE, np.float32)
+    sq = np.einsum("nd,nd->n", rows, rows).astype(np.float32)
+    qs = unit_rows(128, d, seed=d + 3)
+    ws, wi = jax_coarse(xi, scales, qs, n_valid, sq, k, metric)
+    gs, gi = TQ.int8_coarse_topk(
+        torch.from_numpy(xi), torch.from_numpy(scales), torch.from_numpy(qs),
+        n_valid, torch.from_numpy(sq), k=k, metric=metric)
+    gs, gi = gs.numpy(), gi.numpy()
+    # the scores are the same f32 values in the same order
+    np.testing.assert_array_equal(bits(gs), bits(ws))
+    kth = gs[:, -1:]
+    for j in range(len(qs)):
+        above = gs[j] > kth[j]
+        assert set(gi[j][above].tolist()) == set(wi[j][ws[j] > kth[j]].tolist())
+    assert np.all(gi < n_valid)
+
+
+def jax_device_rerank(xs16, sq, qs, cand, live, n_valid, k, metric):
+    import jax.numpy as jnp
+
+    d, i = JQ.device_rerank_topk(
+        jnp.asarray(xs16), jnp.asarray(sq), jnp.asarray(qs),
+        jnp.asarray(cand, jnp.int32), jnp.asarray(live), jnp.int32(n_valid),
+        k=k, metric=metric)
+    return np.asarray(d), np.asarray(i)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_device_rerank_topk_matches_reference(metric):
+    rng = np.random.default_rng(11)
+    n16, n_valid, d, b, kc, k = 4096, 4000, 128, 16, 48, 10
+    rows = unit_rows(n16, d, seed=12)
+    xs16 = rows.astype(np.float16)
+    sq = np.einsum("nd,nd->n", rows, rows).astype(np.float32)
+    qs = unit_rows(b, d, seed=13)
+    cand = rng.integers(0, n16, size=(b, kc)).astype(np.int64)
+    cand[:, 0] = -1               # junk slot
+    cand[:, 1] = n_valid + 5      # past n_valid
+    cand[0, :] = -1               # a query with no candidate at all
+    cand[1, :3] = [7, 7, 7]       # a dead row, repeated
+    live = np.ones(n16, np.uint8)
+    live[7] = 0
+    live[n_valid:] = 0
+    wd, wi = jax_device_rerank(xs16, sq, qs, cand, live, n_valid, k, metric)
+    gd, gi = TQ.device_rerank_topk(
+        torch.from_numpy(xs16), torch.from_numpy(sq), torch.from_numpy(qs),
+        torch.from_numpy(cand), torch.from_numpy(live), n_valid, k=k,
+        metric=metric)
+    gd, gi = gd.numpy(), gi.numpy()
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(np.isinf(gd), np.isinf(wd))
+    assert np.all(gi[0] == -1) and np.all(np.isposinf(gd[0]))
+    assert 7 not in gi
+    fin = np.isfinite(wd)
+    assert np.all(np.abs(gd[fin] - wd[fin]) <= RERANK_TOL * 4)
+
+
+def both_matrices(rows, metric):
+    ref = RefMatrix(rows.shape[1], metric)
+    ref.extend(rows)
+    port = packed_matrix_from_reference(
+        ref.data, ref.sq_norms, ref.n, ref.dim, ref.metric, device="cpu")
+    return ref, port
+
+
+@pytest.fixture
+def single_device(monkeypatch):
+    import jax
+
+    dev = jax.devices()[0]
+    monkeypatch.setattr(jax, "devices", lambda *a, **kw: [dev])
+
+
+@pytest.mark.parametrize("metric,rerank_device", [
+    ("cosine", False), ("cosine", True), ("l2", False), ("l2", True),
+])
+def test_quantized_resident_search_matches_reference(metric, rerank_device,
+                                                     single_device):
+    n, d = 24576, 64
+    rows = unit_rows(n, d, seed=21)
+    if metric == "l2":
+        rows *= 2.0
+    ref, port = both_matrices(rows, metric)
+    live = np.ones(n, bool)
+    live[[3, 500, 9000]] = False
+    qs = unit_rows(128, d, seed=22)
+    wd, wi = JQ.QuantizedResident().search(
+        ref, qs, 10, live, metric, rerank_device=rerank_device)
+    gd, gi = TQ.QuantizedResident().search(
+        port, qs, 10, live, metric, rerank_device=rerank_device)
+    np.testing.assert_array_equal(gi, np.asarray(wi))
+    tol = RERANK_TOL * (8 if metric == "l2" else 1) if rerank_device else 0.0
+    assert np.max(np.abs(gd - np.asarray(wd))) <= tol
+    assert not np.isin(gi, [3, 500, 9000]).any()
+
+
+def test_reference_int8_state_installs_into_the_port(single_device):
+    """One quantized state, made by the reference, fed to both packages
+    through ``quantized_resident_from_reference``."""
+    n, d = 16384, 128
+    ref, port = both_matrices(unit_rows(n, d, seed=31), "cosine")
+    ref_q = JQ.QuantizedResident()
+    codes, scales, _ = ref_q.arrays(ref)
+    # mark the state so a re-quantization on the port side would show
+    codes = np.asarray(codes).copy()
+    codes[:, -1] = 0
+    ref_q._cached = (ref.version, ref_q._cached[1].at[:, -1].set(0),
+                     ref_q._cached[2], ref_q._cached[3])
+    port_q = quantized_resident_from_reference(port, codes,
+                                               np.asarray(scales))
+    xs_i8, _, _ = port_q.arrays(port)
+    np.testing.assert_array_equal(xs_i8.numpy(), codes)
+    live = np.ones(n, bool)
+    qs = unit_rows(64, d, seed=32)
+    wd, wi = ref_q.search(ref, qs, 10, live, "cosine")
+    gd, gi = port_q.search(port, qs, 10, live, "cosine")
+    np.testing.assert_array_equal(gi, np.asarray(wi))
+    np.testing.assert_array_equal(gd, np.asarray(wd))
+
+
+def test_use_fused_gate():
+    class M:
+        ROW_PAD = 512
+
+        def __init__(self, device, metric, n, dim_pad):
+            self.device = torch.device(device)
+            self.metric, self.n, self.dim_pad = metric, n, dim_pad
+
+    assert TQ.use_fused(M("cuda", "cosine", 8192, 128))
+    assert TQ.use_fused(M("cuda", "cosine", 10**6, 4096))  # no width cap
+    assert not TQ.use_fused(M("cuda", "cosine", 8191, 128))
+    assert not TQ.use_fused(M("cuda", "l2", 8192, 128))
+    assert not TQ.use_fused(M("cpu", "cosine", 8192, 128))
+    assert not TQ.use_fused(M("cuda", "cosine", 8192, 192))
+
+
+@pytest.mark.cuda
+def test_i8_bucket_scores_kernel_matches_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    dev = torch.device("cuda")
+    xi = torch.from_numpy(TQ.quantize_rows_unit(unit_rows(3 * 8192, 256, 41)))
+    q_i8, _ = TQ._quantize_queries(torch.from_numpy(unit_rows(256, 256, 42)))
+    n_valid = 3 * 8192 - 77
+    before = TQ.i8_bucket_scores.launches
+    got = TQ.i8_bucket_scores(xi.to(dev), q_i8.to(dev), n_valid).cpu()
+    assert TQ.i8_bucket_scores.launches == before + 1
+    want = TQ.i8_bucket_scores_reference(xi, q_i8, n_valid)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError):
+        TQ.i8_bucket_scores(xi.to(dev), q_i8[:100].to(dev), n_valid)
