@@ -1,15 +1,15 @@
-"""Drive the PyTorch port's vector-search paths once on one GPU.
+"""Drive the PyTorch port's device paths once on one GPU.
 
     python3 chip_smoke.py
 
 Needs one CUDA device (exits nonzero without one, and prints no result),
-``nvcc`` for the kernel build, ``g++`` for the native re-rank library,
-and the repository checkout (it imports ``helix_tpu_torch``, never JAX).
+``nvcc`` for the kernel build, ``g++`` for the native host library, and
+the repository checkout (it imports ``helix_tpu_torch``, never JAX).
 Phases, each failing the run on a bad check:
 
 1. Build the hand-written kernels from ``helix_tpu_torch/csrc`` and the
-   native host library (``helix_tpu/native``, the quantized rungs'
-   re-rank).
+   native host library (``helix_tpu/native``: the quantized rungs' and
+   host IVF's re-rank, the traversal's native sweep).
 2. Kernel 1: ``bucket_scores`` against its plain PyTorch version at the
    main path's shapes (1M rows padded to 8192, D=128, B=256), with the
    tolerance rule of ``tests/test_torch_fused_topk.py`` at 1e-5; both
@@ -26,15 +26,35 @@ Phases, each failing the run on a bad check:
    ``Partition.search_many`` batches.  The answers hold recall@10 >= 0.99
    and exact ``$distance`` against a float32 numpy oracle, a dropped top
    hit disappears, and the launch counts show that kernel 1 served.
-5. Ladder: ``Engine(device="cuda", hbm_budget_bytes=96 MiB)`` ingests the
-   same set.  At 500,000 rows the int8 rung serves (kernel 2), with the
-   host re-rank and then with ``HELIX_QUANT_RERANK=device``; at 1,000,000
-   rows the int4 rung serves (kernel 3).  Each step checks its rung,
-   recall@10 (>= 0.98 int8, >= 0.95 int4), ``$distance``, a dropped top
-   hit, and that its kernel and no other launched.
+   Then the same engine takes 1.6M labeled edges through write batches
+   and answers set-reduced traversals (``N``/``NWhere`` -> ``Out`` /
+   ``In`` / ``Both`` -> ``Where`` -> ``Dedup`` -> ``Count`` / ``Exists``,
+   an ``OrderBy`` membership tail) and hybrid reads
+   (``VectorSearchNodes`` -> ``Out`` -> ``Dedup`` -> ``Count``) with
+   ``HELIX_TRAVERSAL_BACKEND`` forced to ``device``, ``native``, then
+   ``auto``: equal JSON on all three.
+5. Graph ops: ``bench.py``'s traversal shape (1M nodes, degree 16, 4
+   labels): ``khop_mask`` / ``khop_count`` / ``hybrid_expand`` on the
+   card against ``helix_tpu.native.bfs_khop``, masks and counts equal,
+   both sides timed.
+6. Ladder: ``Engine(device="cuda", hbm_budget_bytes=96 MiB)`` ingests 2M
+   rows of the same generator.  At 500,000 rows the int8 rung serves
+   (kernel 2), with the host re-rank and then with
+   ``HELIX_QUANT_RERANK=device``; at 1,000,000 rows the int4 rung
+   (kernel 3); at 2,000,000 rows the host-IVF rung (no kernel), with the
+   probe router on auto, then ``HELIX_IVF_BACKEND=device``, then
+   ``host``.  Each step checks its rung, recall@10 (>= 0.98 int8, >= 0.95
+   int4 and IVF), ``$distance``, a dropped top hit, and which kernels
+   and device ops ran; the IVF step also holds its probe cells to a
+   float64 computation.
+7. Text: a 116,969-doc BM25 index through the engine
+   (``TextSearchNodes``): the device path's ids equal the host path's,
+   scores within rtol 1e-5, both timed.
 
-The last lines are a ``{"kernels": [...]}`` JSON object, the card's
-name and power limit from ``nvidia-smi``, and
+Every device op counts its calls on CUDA tensors (``device_counts``);
+a forced device path that shows none fails the run.  The last lines are
+a ``device paths:`` summary, a ``{"kernels": [...]}`` JSON object, the
+card's name and power limit from ``nvidia-smi``, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -59,11 +79,23 @@ TOL = 1e-5
 KERNEL_RUNS = 5
 N_PROBE = 128  # p90 of the per-request latency has 12 samples past it
 N_BATCHES = 16
-# The ladder phase's budget: at dim_pad 128, 500,000 rows fit int8 codes
-# (66 MB) but not the exact copies (384 MB), and 1,000,000 rows fit
-# packed int4 (68 MB) but not int8 (132 MB).
+# The ladder phase's budget and rows (steps: LADDER_STEPS).
 LADDER_BUDGET = 96 << 20
+LADDER_ROWS = 2_000_000
 DEVICE_RERANK_TOL = 2e-3  # f16 rows: |x| * 2^-11 per component
+# The graph ops phase: bench.py's traversal shape (BASELINE configs[2]).
+GRAPH_NODES = 1_000_000
+GRAPH_DEGREE = 16
+GRAPH_LABELS = 4
+# Edges written into the exact phase's engine, ENGINE_DEGREE per source
+# node: the engine's write path sustained 18,300-25,100 edges/s on the
+# H100 machine's host, so 1.6M edges take 64-90 s.
+ENGINE_DEGREE = 4
+ENGINE_EDGES = 1_600_000
+EDGE_CHUNK = 25_000
+# The largest corpus of the test generator whose most common word stays
+# within DevicePostings' cap of 65,536 postings.
+N_TEXT_DOCS = 116_969
 
 
 def log(msg: str) -> None:
@@ -560,70 +592,542 @@ def engine_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
     counts = launch_counts()
     check_only_launched(device, counts, "bucket_scores", "engine phase")
     log(f"engine phase: launches {counts}")
+    res["graph"] = engine_graph_phase(engine, part, queries[N_PROBE:], device)
     matrix.release_device()
     res.update(launches=counts["bucket_scores"], ingest_s=ingest_s,
                upload_s=upload_s)
     return res
 
 
-def ladder_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
+# The ladder's steps: (rows reached, rung, knob, its values).  Under the
+# 96 MiB budget at dim_pad 128: 500,000 rows fit int8 codes (66 MB) but
+# not the exact copies; 1,000,000 rows fit packed int4 (68 MB) but not
+# int8; 2,000,000 rows fit no device rung (int4 136 MB): host IVF.
+LADDER_STEPS = (
+    (LADDER_ROWS // 4, "int8", "HELIX_QUANT_RERANK", ("auto", "device")),
+    (LADDER_ROWS // 2, "int4", None, ("auto",)),
+    (LADDER_ROWS, "ivf", "HELIX_IVF_BACKEND", ("auto", "device", "host")),
+)
+LADDER_KERNEL = {"int8": "i8_bucket_scores", "int4": "i4_bucket_scores",
+                 "ivf": None}
+
+
+def check_probe_cells(part, queries: np.ndarray, what: str) -> float:
+    """The IVF probe on the device against a float64 numpy computation
+    over the same centroids: each chosen cell scores within 1e-5 of the
+    nprobe-th best (f32 and f64 may order near ties differently).
+    Returns the largest shortfall."""
+    from helix_tpu_torch.ops.ivf import probe_cells
+
+    index = part.host_ivf
+    nprobe = 32
+    qs = part.matrix.prepare_queries(queries)
+    got = probe_cells(index.centroids, torch.from_numpy(qs).to(
+        index.centroids.device), nprobe=nprobe).cpu().numpy()
+    sims = qs.astype(np.float64) @ index.centroids.cpu().numpy() \
+        .astype(np.float64).T
+    kth = -np.sort(-sims, axis=1)[:, nprobe - 1]
+    chosen = np.take_along_axis(sims, got, axis=1)
+    short = float(np.max(kth[:, None] - chosen))
+    check(all(len(set(row)) == nprobe for row in got.tolist())
+          and short <= 1e-5, f"{what}: probe cells off the f64 top-"
+          f"{nprobe} by {short}")
+    return short
+
+
+def ladder_phase(device: torch.device, n_rows: int = LADDER_ROWS) -> dict:
     """The residency ladder under a device-memory budget: one engine
-    ingests the engine phase's set; at half of it the int8 rung serves
-    (host re-rank, then ``HELIX_QUANT_RERANK=device``), at all of it the
-    int4 rung.  A CPU rehearsal at a smaller ``n_rows`` scales the budget
-    with it."""
-    budget = LADDER_BUDGET * n_rows // N_ROWS
+    ingests ``n_rows`` of the engine phase's generator; at a quarter of
+    them the int8 rung serves (host re-rank, then
+    ``HELIX_QUANT_RERANK=device``), at half the int4 rung, at all of
+    them the host-IVF rung (probe router on auto, then
+    ``HELIX_IVF_BACKEND=device``, then ``host``).  A CPU rehearsal at a
+    smaller ``n_rows`` scales the budget with it."""
+    budget = LADDER_BUDGET * n_rows // LADDER_ROWS
     data, queries = make_dataset(n_rows, DIM, N_PROBE + N_BATCHES * BATCH)
     engine = new_engine(device, hbm_budget_bytes=budget)
     dead: list = []
     out: dict = {"launches": {}}
-    half = n_rows // 2
-    for lo, rows, rung in ((0, half, "int8"), (half, n_rows, "int4")):
+    lo = 0
+    for full, rung, knob, modes in LADDER_STEPS:
+        rows = full * n_rows // LADDER_ROWS
         ingest_s = ingest(engine, data, lo, rows)
+        lo = rows
         part = doc_partition(engine)
         log(f"ladder: ingest to {rows} rows: {ingest_s:.1f} s (budget "
             f"{budget} bytes)")
-        check(part._use_host_ivf() is False and part._use_host_exact() is
-              False, f"ladder at {rows}: a host rung would serve")
-        check(part._use_quant() == (rung == "int8")
+        check(part._use_host_exact() is False
+              and part._use_host_ivf() == (rung == "ivf")
+              and part._use_quant() == (rung == "int8")
               and part._use_quant4() == (rung == "int4"),
               f"ladder at {rows}: int8 {part._use_quant()} int4 "
-              f"{part._use_quant4()}, want {rung}")
+              f"{part._use_quant4()} host IVF {part._use_host_ivf()}, "
+              f"want {rung}")
         reset_launch_counts()
-        modes = ("auto", "device") if rung == "int8" else ("auto",)
+        before = device_counts()
         for mode in modes:
-            what = f"{rung} ({mode} re-rank)" if rung == "int8" else rung
-            os.environ["HELIX_QUANT_RERANK"] = mode
+            what = f"{rung} ({knob} {mode})" if knob else rung
+            if knob:
+                os.environ[knob] = mode
             if rung == "int8":
                 check(part._quant_rerank_device() == (mode == "device"),
                       f"{what}: re-rank placement")
+            step = device_counts()
             t = time.perf_counter()
             engine.execute_stored("vsearch", {"q": queries[0].tolist(),
                                               "k": K})
             first_ms = (time.perf_counter() - t) * 1e3
-            log(f"{what}: first search after the change (quantize + "
+            log(f"{what}: first search after the change (quantize / fit + "
                 f"upload) {first_ms:.1f} ms")
+            if rung == "ivf" and mode == "auto":
+                index = part.host_ivf
+                out["ivf_build_s"] = index.build_seconds
+                out["ivf_probe_short"] = check_probe_cells(
+                    part, queries[:BATCH], what)
+                log(f"{what}: IVF build {index.build_seconds:.2f} s "
+                    f"({index.centroids.shape[0]} cells over {index.n} "
+                    f"rows, centroids on {index.centroids.device}); probe "
+                    f"cells equal to the f64 top-32 within "
+                    f"{out['ivf_probe_short']:.3g}")
+                check_device_ran(device, counts_since(before),
+                                 ("kmeans_fit", "probe_cells"), what)
             res = serve_reads(
                 engine, part, queries, dead,
                 recall_floor=0.98 if rung == "int8" else 0.95,
-                dist_tol=DEVICE_RERANK_TOL if mode == "device" else TOL,
+                dist_tol=DEVICE_RERANK_TOL if mode == "device"
+                and rung == "int8" else TOL,
                 what=what)
             res["first_ms"] = first_ms
+            if rung == "ivf":
+                ran = counts_since(step)
+                if mode != "host":
+                    check_device_ran(device, ran, ("score_block",), what)
+                check(mode != "host" or ran["score_block"] == 0,
+                      f"{what}: the union was scored on the device")
+                check(mode != "device" or part.host_ivf.last_path == "device",
+                      f"{what}: last path {part.host_ivf.last_path}")
+                check_device_ran(device, ran, ("probe_cells",), what)
+                res["device_calls"] = ran
+                log(f"{what}: CUDA calls {ran}, router runs "
+                    f"{part.host_ivf.router.runs}")
             out[what] = res
-        os.environ.pop("HELIX_QUANT_RERANK")
+        if knob:
+            os.environ.pop(knob)
         dead.append(check_drop(engine, part, queries[0],
                                out[what]["first_rows"], what))
         check(part.matrix._device is None and part.matrix._device32 is None,
               f"ladder at {rows}: the exact tier uploaded past the budget")
         counts = launch_counts()
-        kernel = "i8_bucket_scores" if rung == "int8" else "i4_bucket_scores"
-        check_only_launched(device, counts, kernel, f"ladder {rung}")
-        out["launches"][kernel] = counts[kernel]
+        kernel = LADDER_KERNEL[rung]
+        if kernel is None:
+            check(not any(counts.values()),
+                  f"ladder {rung}: kernels launched: {counts}")
+        else:
+            check_only_launched(device, counts, kernel, f"ladder {rung}")
+            out["launches"][kernel] = counts[kernel]
         mem = torch.cuda.memory_allocated(device) if device.type == "cuda" \
             else 0
         log(f"ladder {rung} at {rows} rows: launches {counts}, device "
             f"memory allocated {mem} bytes")
     return out
+
+
+# ----------------------------------------------------------------- graph
+
+
+def device_counts() -> dict:
+    """Calls of the device ops (torch ops, no hand kernel) on CUDA
+    tensors, beside the kernels' launch counts."""
+    from helix_tpu_torch.ops import bm25, csr, ivf
+
+    return {"khop_mask": csr.khop_mask.cuda_calls,
+            "bm25_scores": bm25.bm25_scores.cuda_calls,
+            "kmeans_fit": ivf.kmeans_fit.cuda_calls,
+            "probe_cells": ivf.probe_cells.cuda_calls,
+            "score_block": ivf.score_block.cuda_calls}
+
+
+def counts_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in device_counts().items()}
+
+
+def check_device_ran(device: torch.device, ran: dict, ops: tuple,
+                     what: str) -> None:
+    """Each op of ``ops`` ran on CUDA tensors in the step (on the card;
+    a CPU rehearsal counts nothing)."""
+    if device.type != "cuda":
+        return
+    missing = [op for op in ops if not ran[op]]
+    check(not missing, f"{what}: no CUDA calls of {missing} ({ran})")
+
+
+def wall_ms(fn, *args) -> float:
+    t = time.perf_counter()
+    fn(*args)
+    return (time.perf_counter() - t) * 1e3
+
+
+def graph_ops_phase(device: torch.device, seeds: list,
+                    n: int = GRAPH_NODES) -> dict:
+    """``bench.py``'s traversal shape (BASELINE configs[2] and [3]): a
+    random graph of ``n`` nodes and degree 16 over 4 labels; labeled
+    2-hop from 0.1% start masks kept by a 50% filter, and a 1-hop
+    expansion of the exact search's top-k.  The port's ``khop_mask`` /
+    ``khop_count`` / ``hybrid_expand`` on the device against
+    ``helix_tpu.native.bfs_khop``: masks and counts equal.  Times: CUDA
+    events for the device side, resident and with the mask's H2D/D2H;
+    wall time for the native sweep."""
+    from helix_tpu import native
+    from helix_tpu_torch.ops import csr as C
+
+    rng = np.random.default_rng(5)
+    dst = rng.integers(0, n, size=n * GRAPH_DEGREE).astype(np.int32)
+    lab = rng.integers(0, GRAPH_LABELS, size=n * GRAPH_DEGREE) \
+        .astype(np.int32)
+    indptr = np.arange(n + 1, dtype=np.int64) * GRAPH_DEGREE
+    keep_h = rng.random(n) < 0.5
+    starts_h = [rng.random(n) < 0.001 for _ in range(4)]
+    t = time.perf_counter()
+    graph = C.PaddedGraph.from_csr(indptr, dst, lab, n, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    log(f"graph ops: {n} nodes, {n * GRAPH_DEGREE} edges, padded "
+        f"[{graph.n}, {graph.p}] int32 x2 ({graph.n * graph.p * 8} bytes) "
+        f"built + uploaded in {time.perf_counter() - t:.2f} s")
+    keep = torch.from_numpy(keep_h).to(device)
+    starts = [torch.from_numpy(s).to(device) for s in starts_h]
+    before = device_counts()
+    C.TIER_HOPS.update({4096: 0, 65536: 0, "dense": 0})
+
+    def native_mask(start_h, code, hops):
+        mask, _ = native.bfs_khop(indptr, dst, lab, start_h.astype(np.uint8),
+                                  code, hops)
+        return mask.astype(bool)
+
+    counts = []
+    for start_h, start in zip(starts_h, starts):
+        for code, hops in ((-1, 3), (-1, 2), (1, 2)):
+            got = C.khop_mask(graph.neighbors, graph.edge_labels, start,
+                              code, hops).cpu().numpy()
+            want = native_mask(start_h, code, hops)
+            check(np.array_equal(got, want),
+                  f"khop_mask code={code} hops={hops}: "
+                  f"{int((got != want).sum())} slots differ from bfs_khop")
+        count = int(C.khop_count(graph.neighbors, graph.edge_labels, start,
+                                 1, 2, keep))
+        want_count = int(want[keep_h].sum())   # the labeled 2-hop's mask
+        check(count == want_count,
+              f"khop_count {count} vs bfs_khop {want_count}")
+        counts.append(count)
+    seed_h = np.zeros(n, bool)
+    seed_h[seeds] = True
+    seed_t = torch.tensor(seeds + [n] * (16 - len(seeds)), dtype=torch.int32,
+                          device=device)
+    h_mask, h_count = C.hybrid_expand(graph.neighbors, graph.edge_labels,
+                                      seed_t, -1, 1, keep)
+    h_want = native_mask(seed_h, -1, 1) & keep_h
+    check(np.array_equal(h_mask.cpu().numpy(), h_want)
+          and int(h_count) == int(h_want.sum()),
+          f"hybrid_expand: count {int(h_count)} vs bfs_khop "
+          f"{int(h_want.sum())}")
+    log(f"graph ops: labeled 2-hop counts {counts} equal to bfs_khop, masks "
+        f"equal (labeled and unlabeled 2-hop); hybrid 1-hop of {len(seeds)} "
+        f"seeds: {int(h_count)} nodes, equal; hop tiers {C.TIER_HOPS}")
+    ran = counts_since(before)
+    check_device_ran(device, ran, ("khop_mask",), "graph ops")
+
+    def device_2hop(start):
+        return C.khop_count(graph.neighbors, graph.edge_labels, start, 1, 2,
+                            keep)
+
+    def device_2hop_transfers(start_h):
+        start = torch.from_numpy(start_h).to(device)
+        mask = C.khop_mask(graph.neighbors, graph.edge_labels, start, 1, 2)
+        return (mask & keep).cpu().numpy()
+
+    def native_2hop(start_h):
+        return int(native_mask(start_h, 1, 2)[keep_h].sum())
+
+    def device_hybrid():
+        return C.hybrid_expand(graph.neighbors, graph.edge_labels, seed_t, -1,
+                               1, keep)[1].item()
+
+    def native_hybrid():
+        return int((native_mask(seed_h, -1, 1) & keep_h).sum())
+
+    timing = cuda_ms if device.type == "cuda" else wall_ms
+    device_2hop(starts[0])  # warm-up
+    native_2hop(starts_h[0])
+    res = {"device_ms": [], "device_xfer_ms": [], "native_ms": [],
+           "hybrid_device_ms": [], "hybrid_native_ms": []}
+    for r in range(8):
+        res["device_ms"].append(timing(device_2hop, starts[r % 4]))
+        res["device_xfer_ms"].append(timing(device_2hop_transfers,
+                                            starts_h[r % 4]))
+        res["native_ms"].append(wall_ms(native_2hop, starts_h[r % 4]))
+        res["hybrid_device_ms"].append(timing(device_hybrid))
+        res["hybrid_native_ms"].append(wall_ms(native_hybrid))
+    res = {k: float(np.median(v)) for k, v in res.items()}
+    log(f"graph ops timing (median of 8): labeled 2-hop + filter count: "
+        f"device {res['device_ms']:.3f} ms resident, "
+        f"{res['device_xfer_ms']:.3f} ms with mask H2D/D2H; native bfs_khop "
+        f"{res['native_ms']:.3f} ms.  hybrid 1-hop: device "
+        f"{res['hybrid_device_ms']:.3f} ms, native "
+        f"{res['hybrid_native_ms']:.3f} ms")
+    res["khop_mask_calls"] = ran["khop_mask"]
+    return res
+
+
+def edge_request(label: str, items: list) -> dict:
+    """One write batch: each item links ``src`` to every id in ``dst``
+    with a ``label`` edge."""
+    return {
+        "request_type": "write", "query_name": "edges",
+        "query": {"queries": [{"ForEach": {"param": "e", "body": [
+            {"Query": {"name": "x", "steps": [
+                {"N": {"Param": "e.src"}},
+                {"AddE": {"label": label, "to": {"Param": "e.dst"},
+                          "properties": []}}], "condition": None}}]}}],
+            "returns": []},
+        "parameters": {"e": items},
+        "parameter_types": {"e": {"Array": "Object"}},
+    }
+
+
+def add_edges(engine, ids: np.ndarray, src_rows: np.ndarray,
+              targets: np.ndarray, rng) -> int:
+    """``ENGINE_DEGREE`` edges from each source row to random target
+    rows, under one of ``GRAPH_LABELS`` labels each, as one write batch
+    per label.  Returns the number of edges written."""
+    dst = targets[rng.integers(0, len(targets),
+                               size=(len(src_rows), ENGINE_DEGREE))]
+    lab = rng.integers(0, GRAPH_LABELS, size=(len(src_rows), ENGINE_DEGREE))
+    src_ids = ids[src_rows].tolist()
+    dst_ids = ids[dst]
+    for code in range(GRAPH_LABELS):
+        sel = lab == code
+        items = [{"src": s, "dst": d[m].tolist()}
+                 for s, d, m in zip(src_ids, dst_ids, sel) if m.any()]
+        engine.execute(edge_request(f"L{code}", items))
+    return int(dst.size)
+
+
+def _lt(prop: str, value: int) -> dict:
+    return {"Lt": [prop, {"I64": value}]}
+
+
+GRAPH_QUERIES = {
+    "labeled 2-hop + where": [
+        {"NWhere": _lt("i", 2000)}, {"Out": "L1"}, {"Out": "L1"},
+        {"Where": {"Gt": ["i", {"I64": 500_000}]}}, "Dedup", "Count"],
+    "in + both (labeled)": [
+        {"NWhere": _lt("i", 500)}, {"In": None}, {"Both": "L2"}, "Dedup",
+        "Exists"],
+    "both x2": [
+        {"NWhere": _lt("i", 1000)}, {"Both": None}, {"Both": None}, "Dedup",
+        "Count"],
+    "order-by tail": [
+        {"NWhere": _lt("i", 300)}, {"Out": "L0"}, {"Out": None}, "Dedup",
+        {"OrderBy": ["i", "Desc"]}, {"Limit": 50}, {"Values": ["i"]}],
+}
+
+
+def hybrid_query(hops: list) -> list:
+    return [{"VectorSearchNodes": {
+        "label": "Doc", "property": "emb",
+        "query_vector": {"Expr": {"Param": "q"}},
+        "k": {"Expr": {"Param": "k"}}}}] + hops + ["Dedup", "Count"]
+
+
+def read_request(steps: list, params: dict | None = None,
+                 types: dict | None = None) -> dict:
+    return {"request_type": "read", "query_name": "r", "query": {
+        "queries": [{"Query": {"name": "r", "steps": steps,
+                               "condition": None}}], "returns": ["r"]},
+        "parameters": params or {}, "parameter_types": types or {}}
+
+
+def engine_graph_phase(engine, part, queries: np.ndarray,
+                       device: torch.device) -> dict:
+    """``ENGINE_EDGES`` labeled edges into the exact phase's engine
+    through write batches, then set-reduced traversals and hybrid reads
+    through ``execute``, each once to warm up and then with
+    ``HELIX_TRAVERSAL_BACKEND`` forced to ``device``, to ``native``,
+    then ``auto``: the answers must be equal byte for byte."""
+    from helix_tpu_torch.engine.exec import Executor
+
+    rng = np.random.default_rng(6)
+    ids = part.id_table.astype(np.int64)
+    live = np.nonzero(part.live_mask)[0]
+    n = len(live)
+    n_src = min(n, ENGINE_EDGES // ENGINE_DEGREE)
+    t0 = time.perf_counter()
+    done = 0
+    for lo in range(0, n_src, EDGE_CHUNK):
+        done += add_edges(engine, ids, live[lo:min(n_src, lo + EDGE_CHUNK)],
+                          live, rng)
+    ingest_s = time.perf_counter() - t0
+    log(f"engine graph: {done} labeled edges over {n} nodes in "
+        f"{ingest_s:.1f} s ({done / ingest_s:.0f} edges/s)")
+    t = time.perf_counter()
+    snap = engine.snapshots.get()
+    graphs = [snap.padded_graph(d) for d in ("out", "in")]
+    check(all(g is not None and g.neighbors.device.type == device.type
+              for g in graphs), "padded_graph: no device adjacency")
+    log(f"engine graph: snapshot + padded adjacency (out [{graphs[0].n}, "
+        f"{graphs[0].p}], in [{graphs[1].n}, {graphs[1].p}]) "
+        f"{time.perf_counter() - t:.1f} s")
+
+    reads = {name: read_request(steps) for name, steps in
+             GRAPH_QUERIES.items()}
+    for j, hops in enumerate(([{"Out": None}],
+                              [{"Out": None}, {"Out": "L1"}])):
+        reads[f"hybrid {len(hops)}-hop"] = read_request(
+            hybrid_query(hops), {"q": queries[j].tolist(), "k": K},
+            {"q": {"Array": "F32"}, "k": "I64"})
+    check(Executor.device_traversal_min_nodes <= snap.n_nodes,
+          "the planner's size floor would route these reads to the host")
+    out = {"edges": done, "edge_ingest_s": ingest_s, "reads": {}}
+    for name, request in reads.items():
+        engine.execute(request)  # warm-up: property columns, source index
+        answers, ms = {}, {}
+        for backend in ("device", "native", "auto"):
+            os.environ["HELIX_TRAVERSAL_BACKEND"] = backend
+            before = device_counts()
+            runs = dict(engine._traversal_router.runs)
+            t = time.perf_counter()
+            answers[backend] = json.dumps(engine.execute(request))
+            ms[backend] = (time.perf_counter() - t) * 1e3
+            router = engine._traversal_router
+            if backend != "auto":
+                check(router.runs[backend] == runs[backend] + 1,
+                      f"{name}: the {backend} path did not serve")
+            if backend == "device":
+                check_device_ran(device, counts_since(before),
+                                 ("khop_mask",), name)
+        os.environ.pop("HELIX_TRAVERSAL_BACKEND")
+        check(len(set(answers.values())) == 1,
+              f"{name}: answers differ across backends: {answers}")
+        log(f"engine graph {name}: {answers['device'][:60]} equal on device "
+            f"/ native / auto; wall {ms['device']:.1f} / {ms['native']:.1f} "
+            f"/ {ms['auto']:.1f} ms")
+        out["reads"][name] = ms
+    router = engine._traversal_router
+    for _ in range(4):  # let auto settle on measurements of both paths
+        for request in reads.values():
+            engine.execute(request)
+    log(f"engine graph: router runs {router.runs}, EWMA ms "
+        f"{ {k: round(v, 3) for k, v in router.ewma.items()} }, settles on "
+        f"{min(router.ewma, key=router.ewma.get)}")
+    out["router_ewma_ms"] = dict(router.ewma)
+    return out
+
+
+# ------------------------------------------------------------------ text
+
+TEXT_WORDS = (
+    "graph vector database search engine tpu index query latency "
+    "throughput node edge embedding text score rank shard mesh"
+).split()
+TEXT_QUERIES = ("graph vector", "tpu index latency", "score",
+                "shard mesh rank node", "database search engine query text",
+                " ".join(TEXT_WORDS[:16]))
+
+
+def text_corpus(n_docs: int) -> list[str]:
+    """``tests/test_bm25_device.py``'s generator (seed 4): docs of 3-29
+    words drawn from 18 words, doc i+1 = entry i."""
+    rng = np.random.default_rng(4)
+    return [" ".join(rng.choice(TEXT_WORDS, int(rng.integers(3, 30))))
+            for _ in range(n_docs)]
+
+
+def text_phase(device: torch.device, n_docs: int = N_TEXT_DOCS) -> dict:
+    """A text index through the engine at the largest corpus of the
+    test generator whose postings still fit ``DevicePostings``' cap
+    (65,536 per term), queried with ``TextSearchNodes``: the device path
+    against the host path of the same partition (read by raising its
+    ``device_threshold``), ids equal, scores within rtol 1e-5, both
+    timed."""
+    from helix_tpu_torch.engine import Engine
+    from helix_tpu_torch.ops.bm25 import DevicePostings
+
+    engine = Engine(device=device)
+    write(engine, [{"CreateIndex": {"spec": {"NodeText": {
+        "label": "Doc", "property": "body", "tenant_property": None,
+    }}, "if_not_exists": True}}], {}, {})
+    texts = text_corpus(n_docs)
+    t = time.perf_counter()
+    for lo in range(0, n_docs, INGEST_CHUNK):
+        engine.execute({
+            "request_type": "write", "query_name": "ingest",
+            "query": {"queries": [{"ForEach": {"param": "docs", "body": [
+                {"Query": {"name": "d", "steps": [{"AddN": {
+                    "label": "Doc", "properties": [
+                        ["i", {"Expr": {"Param": "docs.i"}}],
+                        ["body", {"Expr": {"Param": "docs.body"}}]]}}],
+                    "condition": None}}]}}], "returns": []},
+            "parameters": {"docs": [
+                {"i": i, "body": texts[i]}
+                for i in range(lo, min(n_docs, lo + INGEST_CHUNK))]},
+            "parameter_types": {"docs": {"Array": "Object"}},
+        })
+    ingest_s = time.perf_counter() - t
+    part = engine.texts.indexes[("NodeText", "Doc", "body")] \
+        .partitions[("",)]
+    p = max(len(b) for b in part.postings.values())
+    t_terms = len(part.postings)
+    log(f"text: {n_docs} docs ingested in {ingest_s:.1f} s; T={t_terms} "
+        f"terms, P={p} (cap 65536), padded postings {t_terms * p * 8} bytes")
+    check(len(part.doc_len) == n_docs and n_docs >= part.device_threshold,
+          "text: the corpus is below the device threshold")
+
+    def read(query: str) -> dict:
+        return read_request([
+            {"TextSearchNodes": {"label": "Doc", "property": "body",
+                                 "query_text": {"Expr": {"Param": "q"}},
+                                 "k": {"Expr": {"Param": "k"}}}},
+            {"ValueMap": ["$id", "$score", "i"]}],
+            {"q": query, "k": K}, {"q": "String", "k": "I64"})
+
+    before = device_counts()
+    t = time.perf_counter()
+    engine.execute(read(TEXT_QUERIES[0]))
+    first_ms = (time.perf_counter() - t) * 1e3
+    check(isinstance(part._device[1], DevicePostings),
+          "text: DevicePostings.build returned None")
+    log(f"text: first search (postings build + upload) {first_ms:.1f} ms")
+    threshold = part.device_threshold
+    dev_ms, host_ms = [], []
+    for query in TEXT_QUERIES:
+        answers = {}
+        for path in ("device", "host", "device"):
+            part.device_threshold = threshold if path == "device" else 10**9
+            t = time.perf_counter()
+            answers[path] = engine.execute(read(query))["r"]
+            (dev_ms if path == "device" else host_ms).append(
+                (time.perf_counter() - t) * 1e3)
+        part.device_threshold = threshold
+        dev, host = answers["device"], answers["host"]
+        check([h["$id"] for h in dev] == [h["$id"] for h in host]
+              and len(dev) == K,
+              f"text {query!r}: device ids {[h['i'] for h in dev]} vs host "
+              f"{[h['i'] for h in host]}")
+        check(np.allclose([h["$score"] for h in dev],
+                          [h["$score"] for h in host], rtol=1e-5, atol=0),
+              f"text {query!r}: scores differ past rtol 1e-5")
+    ran = counts_since(before)
+    check_device_ran(device, ran, ("bm25_scores",), "text")
+    res = {"docs": n_docs, "terms": t_terms, "postings_width": p,
+           "ingest_s": ingest_s, "first_ms": first_ms,
+           "device_ms": float(np.median(dev_ms)),
+           "host_ms": float(np.median(host_ms)),
+           "bm25_calls": ran["bm25_scores"]}
+    log(f"text: {len(TEXT_QUERIES)} queries, device ids equal to the host "
+        f"path's, scores within rtol 1e-5; TextSearchNodes read median: "
+        f"device {res['device_ms']:.3f} ms, host {res['host_ms']:.3f} ms; "
+        f"bm25_scores CUDA calls {ran['bm25_scores']}")
+    return res
 
 
 KERNELS = (
@@ -668,7 +1172,14 @@ def main() -> int:
         f"{eng['batch_ms'] - k1['fused_ms']:.3f} ms (search_many median "
         f"{eng['batch_ms']:.3f} ms)")
     gc.collect()  # the exact engine's host rows (cycles keep them alive)
+    graph_ops = graph_ops_phase(device, eng["first_rows"])
     ladder = ladder_phase(device)
+    gc.collect()
+    text = text_phase(device)
+    log("device paths: " + json.dumps({
+        "graph_ops": graph_ops, "engine_graph": eng["graph"],
+        "ivf": {k: v for k, v in ladder.items() if k.startswith("ivf")},
+        "text": text}, default=float))
     launches = {"bucket_scores": eng["launches"], **ladder["launches"]}
     print(json.dumps({"kernels": [{
         "name": name,

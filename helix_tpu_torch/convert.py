@@ -11,9 +11,14 @@ bit.  :func:`quantized_resident_from_reference` and
 :func:`int4_resident_from_reference` install the reference's quantized
 state (its int8 codes; its packed int4 codes, bucket scales, row scales
 and ``perm``) in the port's int8 and int4 residents for such a matrix,
-so both packages can serve one quantized state too.  At engine level,
-state carries across as the same logical write requests (the WAL
-records) replayed into both engines.
+so both packages can serve one quantized state too.
+:func:`host_ivf_from_reference` installs a reference ``HostIVFIndex``'s
+fitted state (centroids, cell-sorted rows, cell boundaries, row map) in
+the port's, since the two k-means fits cannot agree bit for bit.  The
+padded adjacency and the BM25 postings need no converter: both packages
+build them from the same host data.  At engine level, state carries
+across as the same logical write requests (the WAL records) replayed
+into both engines.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from .ops.distance import PackedMatrix
+from .ops.ivf import HostIVFIndex
 from .ops.quant import QuantizedResident, _sq_device
 from .ops.quant4 import Int4Resident
 
@@ -123,3 +129,31 @@ def int4_resident_from_reference(
         perm,
     )
     return resident
+
+
+def host_ivf_from_reference(
+    centroids: np.ndarray, packed: np.ndarray, indptr: np.ndarray,
+    row_to_original: np.ndarray, *, device: torch.device | str,
+) -> HostIVFIndex:
+    """The port's :class:`HostIVFIndex` holding the reference's fitted
+    state: f32 ``centroids [C, D]`` (put on ``device``), the cell-sorted
+    unit rows ``packed [N, D]``, ``indptr [C + 1]`` and
+    ``row_to_original [N]``."""
+    centroids = np.array(centroids, np.float32, copy=True)
+    packed = np.array(packed, np.float32, copy=True)
+    indptr = np.array(indptr, np.int64, copy=True)
+    row_to_original = np.array(row_to_original, np.int64, copy=True)
+    c, d = centroids.shape
+    if packed.ndim != 2 or packed.shape[1] != d:
+        raise ValueError(f"reference rows have shape {packed.shape}, "
+                         f"expected [*, {d}]")
+    if indptr.shape != (c + 1,) or indptr[0] != 0 \
+            or indptr[-1] != len(packed) or np.any(np.diff(indptr) < 0):
+        raise ValueError(f"reference indptr is not the boundaries of {c} "
+                         f"cells over {len(packed)} rows")
+    if row_to_original.shape != (len(packed),):
+        raise ValueError(f"reference row_to_original has shape "
+                         f"{row_to_original.shape}, expected "
+                         f"[{len(packed)}]")
+    return HostIVFIndex(packed, torch.from_numpy(centroids).to(device),
+                        indptr, row_to_original, 0.0)

@@ -9,9 +9,11 @@ needs: :meth:`execute` (dynamic requests, ``POST /v1/query``),
 Port of ``helix_tpu/engine/engine.py`` for ``helix_tpu_torch``: the
 engine holds an explicit ``torch.device`` (``"cuda"`` unless told
 otherwise; the CPU tests pass ``"cpu"``) and hands it to the vector
-indexes, with the residency ladder's knobs (``hbm_budget_bytes``,
-``quant_candidates``).  Knobs whose code paths are later slices of the
-port are refused with an error naming the slice, never silently ignored:
+indexes (with the residency ladder's knobs, ``hbm_budget_bytes`` and
+``quant_candidates``), to the snapshot cache (the padded adjacency of
+device traversal) and to the text indexes (device BM25 postings).
+Knobs whose code paths are later slices of the port are refused with an
+error naming the slice, never silently ignored:
 ``data_dir`` and ``snapshot_store`` (persistence), ``shard_threshold``
 and ``graph_shard_threshold`` (multi-GPU).  ``tests/test_torch_engine_copy.py``
 holds the rest of the code equal to the reference's.
@@ -19,7 +21,9 @@ holds the rest of the code equal to the reference's.
 Differs from the reference in:
 
 - ``_refuse``: new, the refusal of those knobs.
-- ``Engine.__init__``: takes ``device``; refuses the knobs above.
+- ``Engine.__init__``: takes ``device`` and hands it down; refuses the
+  knobs above; makes the traversal router, device first when the device
+  is CUDA.
 - ``Engine.export_replica_seed``: raises NotImplementedError (persistence
   slice).
 - ``Engine.load_replica_seed``: raises NotImplementedError (persistence
@@ -139,14 +143,19 @@ class Engine:
         _refuse("shard_threshold", shard_threshold, "multi-GPU")
         _refuse("graph_shard_threshold", graph_shard_threshold, "multi-GPU")
         self.store = GraphStore()
-        self.snapshots = SnapshotCache(self.store)
+        self.snapshots = SnapshotCache(self.store, device=self.device)
         self.vectors = VectorManager(
             metric=metric, batch_window_ms=batch_window_ms,
             hbm_budget_bytes=hbm_budget_bytes,
             quant_candidates=quant_candidates,
             device=self.device,
         )
-        self.texts = TextManager()
+        self.texts = TextManager(device=self.device)
+        from .exec import TraversalRouter
+
+        self._traversal_router = TraversalRouter(
+            device_first=self.device.type == "cuda"
+        )
         self.store.add_write_hook(self.vectors)
         self.store.add_write_hook(self.texts)
         # Single-writer semantics with shared readers (reference topology

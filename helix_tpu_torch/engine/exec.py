@@ -36,11 +36,16 @@ reference's except for the functions listed here.
 
 Differs from the reference in:
 
-- ``_accelerator_present``: returns False until the graph slice (it only
-  orders the traversal router's bootstrap).
-- ``_DEVICE_BACKEND``: removed with ``_accelerator_present``'s cache.
-- ``Executor._run_device_plan``: raises NotImplementedError (graph slice);
-  unreachable while ``padded_graph`` returns None.
+- ``_accelerator_present``: dropped.  The reference asks the process's
+  default backend; the port's engine holds its own device, so the engine
+  tells its router instead.
+- ``_DEVICE_BACKEND``: dropped with it (its cache).
+- ``TraversalRouter.__init__``: takes ``device_first``, which
+  ``Engine.__init__`` sets when the engine's device is CUDA.
+- ``TraversalRouter.choose``: bootstraps device first when
+  ``device_first`` is set, native first otherwise.
+- ``Executor._run_device_plan``: runs the plan on the snapshot's device
+  with the port's ``ops/csr.py``.
 - ``Executor._run_sharded_traversal``: raises NotImplementedError (multi-GPU
   slice); unreachable while the engine refuses ``graph_shard_threshold``.
 - ``_QueryState._sharded_hop``: raises NotImplementedError (multi-GPU slice)
@@ -346,12 +351,6 @@ def _has_invalidating_steps(entries: Any) -> bool:
     return False
 
 
-def _accelerator_present() -> bool:
-    # No device traversal yet (graph slice, ROADMAP.md Queue 1): the
-    # router's bootstrap tries the native sweep first.
-    return False
-
-
 class TraversalRouter:
     """Measured-cost device-vs-native routing for set-reduced traversals.
 
@@ -375,7 +374,8 @@ class TraversalRouter:
     EXPLORE_EVERY = 64
     ALPHA = 0.3
 
-    def __init__(self):
+    def __init__(self, device_first: bool = False):
+        self.device_first = device_first
         self.ewma: dict[str, float] = {}
         self.runs: dict[str, int] = {"device": 0, "native": 0}
         self.decisions = 0
@@ -395,7 +395,7 @@ class TraversalRouter:
         # bootstrap: run each path until it has a recorded sample
         # (accelerators first — the common win at serving scale)
         for path in (
-            ("device", "native") if _accelerator_present()
+            ("device", "native") if self.device_first
             else ("native", "device")
         ):
             if path not in self.ewma:
@@ -1032,11 +1032,27 @@ class Executor:
     def _run_device_plan(
         self, snap, plan: list, start: np.ndarray
     ) -> np.ndarray:
-        """Single-device traversal plan (graph slice, not ported yet)."""
-        raise NotImplementedError(
-            "device traversal is not ported yet: graph traversal slice, "
-            "ROADMAP.md Queue 1"
-        )
+        """Single-device adaptive-kernel plan execution (ops/csr.py) on
+        the snapshot's device."""
+        import torch
+
+        from ..ops.csr import khop_mask
+
+        mask = torch.from_numpy(start).to(snap.device)
+        for op in plan:
+            if op[0] == "hop":
+                frontier = None
+                for direction, code in op[1]:
+                    graph = snap.padded_graph(direction)
+                    image = khop_mask(
+                        graph.neighbors, graph.edge_labels, mask, code, 1,
+                    )
+                    frontier = image if frontier is None else frontier | image
+                mask = frontier
+            else:
+                keep = np.asarray(op[1], bool)
+                mask = mask & torch.from_numpy(keep).to(snap.device)
+        return mask.cpu().numpy()
 
     def _run_sharded_traversal(self, snap, plan: list, start: np.ndarray):
         """Multi-device traversal plan (multi-GPU slice, not ported yet)."""

@@ -18,10 +18,11 @@ reference's except for the functions listed here.
 
 Differs from the reference in:
 
-- ``GraphSnapshot.padded_graph``: returns None: no device adjacency until the
-  graph slice, so traversals take the native C++ sweep.
-- ``GraphSnapshot.padded_host``: raises NotImplementedError (graph slice).
+- ``GraphSnapshot.padded_graph``: builds the padded adjacency on the
+  snapshot's ``device``, which :class:`SnapshotCache` hands down.
 - ``GraphSnapshot.sharded_graph``: raises NotImplementedError (multi-GPU slice).
+- ``SnapshotCache.__init__``: takes the engine's ``device``.
+- ``SnapshotCache.get``: sets ``device`` on every snapshot it makes.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import torch
 
 from . import values as V
 from .store import GraphStore
@@ -480,10 +482,35 @@ class GraphSnapshot:
     PADDED_BYTES_CAP = 2 << 30
 
     def padded_graph(self, direction: str, max_degree_cap: int = 256):
-        """Device-ready padded adjacency for ``out``/``in`` expansion:
-        always None until the graph traversal slice (ROADMAP.md Queue 1),
-        which routes every traversal to the native C++ sweep."""
-        return None
+        """Padded adjacency for ``out``/``in`` expansion on the snapshot's
+        device (ops/csr.py layout); None when the max degree exceeds the
+        cap or the padded layout would blow the device-memory budget.
+        Cached per snapshot (epoch)."""
+        if direction in self._padded:
+            return self._padded[direction]
+        from ..ops.csr import PaddedGraph
+
+        if direction == "out":
+            indptr, order = self.out_indptr, self.out_edges
+            endpoint = self.edge_dst
+        else:
+            indptr, order = self.in_indptr, self.in_edges
+            endpoint = self.edge_src
+        degrees = np.diff(indptr)
+        max_deg = int(degrees.max()) if len(degrees) else 0
+        if self.n_nodes * max(max_deg, 1) * 8 > self.PADDED_BYTES_CAP:
+            self._padded[direction] = None
+            return None
+        graph = PaddedGraph.from_csr(
+            indptr,
+            endpoint[order].astype(np.int32),
+            self.edge_label_codes[order],
+            self.n_nodes,
+            max_degree_cap=max_degree_cap,
+            device=self.device,
+        )
+        self._padded[direction] = graph
+        return graph
 
     # The sharded path splits the padded layout across the mesh, so its
     # budget is host-side (one full copy during construction).
@@ -491,11 +518,37 @@ class GraphSnapshot:
 
     def padded_host(self, direction: str, max_degree_cap: int = 256,
                     include_edges: bool = False):
-        """Host-layout padded adjacency for the mesh path (not ported)."""
-        raise NotImplementedError(
-            "padded host adjacency is not ported yet: graph traversal "
-            "slice, ROADMAP.md Queue 1"
+        """Host-layout padded adjacency ``(neighbors, labels)`` — or
+        ``(neighbors, labels, edge_slots)`` with ``include_edges``, the
+        plane the mesh-scale edge steps need — (no device upload); None
+        above the degree or host-bytes cap.  Cached per snapshot."""
+        key = f"padhost{'+e' if include_edges else ''}:{direction}"
+        if key in self._padded:
+            return self._padded[key]
+        from ..ops.csr import PaddedGraph
+
+        if direction == "out":
+            indptr, order = self.out_indptr, self.out_edges
+            endpoint = self.edge_dst
+        else:
+            indptr, order = self.in_indptr, self.in_edges
+            endpoint = self.edge_src
+        degrees = np.diff(indptr)
+        max_deg = int(degrees.max()) if len(degrees) else 0
+        if self.n_nodes * max(max_deg, 1) * 8 > self.PADDED_HOST_BYTES_CAP:
+            self._padded[key] = None
+            return None
+        host = PaddedGraph.host_arrays(
+            indptr,
+            endpoint[order].astype(np.int32),
+            self.edge_label_codes[order],
+            self.n_nodes,
+            max_degree_cap=max_degree_cap,
+            # order[i] IS the global edge slot at CSR position i
+            edge_order=order.astype(np.int32) if include_edges else None,
         )
+        self._padded[key] = host
+        return host
 
     def sharded_graph(self, directions: tuple[str, ...],
                       with_edges: bool = False):
@@ -775,8 +828,9 @@ class SnapshotCache:
     Node-append-only epoch deltas (ingest) extend the previous snapshot
     (GraphSnapshot.extended); anything structural rebuilds."""
 
-    def __init__(self, store: GraphStore):
+    def __init__(self, store: GraphStore, *, device: torch.device):
         self._store = store
+        self.device = device
         self._snapshot: GraphSnapshot | None = None
         import threading
 
@@ -811,5 +865,7 @@ class SnapshotCache:
             else:
                 snap = GraphSnapshot(store)
             store.pending_patches.clear()
+            # the device the padded adjacency lives on (padded_graph)
+            snap.device = self.device
             self._snapshot = snap
             return snap

@@ -18,8 +18,14 @@ reference's except for the functions listed here.
 
 Differs from the reference in:
 
-- ``TextPartition._device_postings``: returns None: BM25 serves from the host
-  index (the reference's own hysteresis route) until the BM25 slice.
+- ``TextPartition.__init__``: takes the engine's ``device``.
+- ``TextPartition._device_postings``: builds ``DevicePostings`` on that
+  device; one device (the reference's mesh branch, ``ShardedBM25``, is
+  the multi-GPU slice).
+- ``TextIndex.__init__``: takes ``device``.
+- ``TextIndex.insert_element``: passes ``device`` to new partitions.
+- ``TextManager.__init__``: takes ``device``.
+- ``TextManager.on_index_created``: passes ``device`` on.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import re
 from typing import Any
 
 import numpy as np
+import torch
 
 from . import values as V
 from .errors import QueryError, WriteError
@@ -66,7 +73,9 @@ DEVICE_THRESHOLD = 10_000
 
 
 class TextPartition:
-    def __init__(self, device_threshold: int = DEVICE_THRESHOLD):
+    def __init__(self, device_threshold: int = DEVICE_THRESHOLD, *,
+                 device: torch.device):
+        self.device = device
         self.postings: dict[str, dict[int, int]] = {}
         self.doc_len: dict[int, int] = {}
         self.doc_terms: dict[int, tuple[str, ...]] = {}  # distinct terms
@@ -111,9 +120,22 @@ class TextPartition:
     REBUILD_MIN_WRITES = 2048
 
     def _device_postings(self):
-        # No device postings until the BM25 slice (ROADMAP.md Queue 1):
-        # None is the reference's own route to the host index.
-        return None
+        cached = self._device
+        if cached is not None and cached[0] == self.version:
+            return cached[1]
+        if (
+            cached is not None
+            and cached[1] is not None
+            and self.version - cached[0] < self.REBUILD_MIN_WRITES
+        ):
+            return None  # hysteresis: host path until writes amortize
+        from ..ops.bm25 import DevicePostings
+
+        built = DevicePostings.build(
+            self.postings, self.doc_len, device=self.device
+        )
+        self._device = (self.version, built)
+        return built
 
     def search(self, query: str, k: int) -> tuple[np.ndarray, np.ndarray]:
         n_docs = len(self.doc_len)
@@ -148,8 +170,9 @@ class TextPartition:
 
 
 class TextIndex:
-    def __init__(self, defn: IndexDef):
+    def __init__(self, defn: IndexDef, *, device: torch.device):
         self.defn = defn
+        self.device = device
         self.partitions: dict[tuple, TextPartition] = {}
 
     def insert_element(self, element: Node | Edge) -> None:
@@ -170,7 +193,9 @@ class TextIndex:
             tenant = _tenant_key(tenant_value)
         else:
             tenant = _UNTENANTED
-        self.partitions.setdefault(tenant, TextPartition()).add(element.id, text)
+        self.partitions.setdefault(
+            tenant, TextPartition(device=self.device)
+        ).add(element.id, text)
 
     def remove_element(self, element_id: int) -> None:
         # Prune emptied tenant partitions: a tenant-churn workload would
@@ -206,13 +231,14 @@ class TextIndex:
 class TextManager:
     """Store write-hook + search facade over all text indexes."""
 
-    def __init__(self):
+    def __init__(self, *, device: torch.device):
+        self.device = device
         self.indexes: dict[tuple, TextIndex] = {}
 
     def on_index_created(self, store: GraphStore, defn: IndexDef) -> None:
         if defn.spec_tag not in ("NodeText", "EdgeText"):
             return
-        index = TextIndex(defn)
+        index = TextIndex(defn, device=self.device)
         self.indexes[defn.key()] = index
         table = (
             store.nodes_by_label.get(defn.label, ())

@@ -16,27 +16,25 @@ MXU through the residency ladder (exact / int8 / int4 / host IVF).
 Port of ``helix_tpu/engine/vector.py`` for ``helix_tpu_torch``: partitions
 hold the port's :class:`~helix_tpu_torch.ops.distance.PackedMatrix` on the
 engine's ``torch.device`` and walk the residency ladder on one device:
-exact, int8 (``ops/quant.py``), int4 (``ops/quant4.py``) and, for l2,
-host-exact.  The host-IVF rung (ROADMAP.md Queue 1 #4) and the sharded
-tier (multi-GPU) are later slices: a walk that reaches host-IVF raises
-``NotImplementedError`` instead of serving another rung.
+exact, int8 (``ops/quant.py``), int4 (``ops/quant4.py``), then host-exact
+for l2 and host IVF for cosine (``ops/ivf.py``, centroids on the
+partition's device).  The sharded tier (multi-GPU) is a later slice.
 ``tests/test_torch_engine_copy.py`` holds the rest of the code equal to
 the reference's.
 
 Differs from the reference in:
 
-- ``Partition.__init__``: takes ``device``; no shard or host-IVF state.
+- ``Partition.__init__``: takes ``device``; no shard state.
 - ``Partition.add``: builds the matrix on the partition's device.
 - ``Partition.add_bulk``: builds the matrix on the partition's device.
-- ``Partition.search_many_async``: raises at the host-IVF rung; no
-  sharded tier.
+- ``Partition.search_many_async``: no sharded tier.
 - ``Partition._search_quant``: one device (no mesh branch).
 - ``Partition._search_quant_sharded``: multi-GPU rung, not ported.
 - ``Partition._quant_rerank_device_sharded``: multi-GPU rung, not ported.
 - ``Partition._quant4_recall_serving``: one device (no mesh branch).
 - ``Partition._search_quant4``: one device (no mesh branch).
-- ``Partition._ensure_host_ivf``: IVF rung, not ported.
-- ``Partition._search_host_ivf``: IVF rung, not ported.
+- ``Partition._ensure_host_ivf``: builds the IVF index on the partition's
+  device.
 - ``Partition._use_shard``: multi-GPU rung, not ported.
 - ``Partition._search_sharded``: multi-GPU rung, not ported.
 - ``VectorIndex.__init__``: takes ``device`` in place of ``shard_threshold``.
@@ -126,13 +124,16 @@ class Partition:
         # Beyond-budget laddering (gated by hbm_budget_bytes): exact
         # bf16+f32 residency while it fits, then int8 codes + exact f32
         # re-rank (ops/quant.py), then packed int4 (ops/quant4.py), then
-        # the host rungs (host-exact for l2; host-IVF, not ported yet).
+        # the host rungs (host-exact for l2; host IVF for cosine).
         self.hbm_budget_bytes = hbm_budget_bytes
         # Candidate-pool floor for the quantized rungs (the reference's
         # ef_search analog, ``config.rs:199-201``).
         self.quant_candidates = quant_candidates
         self.quant = None
         self.quant4 = None
+        self.host_ivf = None
+        self.host_ivf_rows = 0
+        self.host_ivf_rebuild_fraction = 0.1
 
     def add(self, element_id: int, vec: np.ndarray) -> None:
         if self.matrix is None:
@@ -247,10 +248,9 @@ class Partition:
             )
             return lambda: empty
         if self._use_host_ivf():
-            raise NotImplementedError(
-                "the residency ladder reached the host-IVF rung, which "
-                "helix_tpu_torch does not serve yet (ROADMAP.md Queue 1 #4)"
-            )
+            dists, positions = self._search_host_ivf(queries, k)
+            id_table = self.id_table  # stable view; see exact tier below
+            return lambda: self._map_hits(dists, positions, id_table)
         if self._use_host_exact():
             dists, positions = self._search_host_exact(queries, k)
             id_table = self.id_table
@@ -454,6 +454,59 @@ class Partition:
                 # serviceable pool: fall past it, never below 0.95
                 or not self._quant4_recall_serving()
             )
+        )
+
+    def _ensure_host_ivf(self) -> None:
+        from ..ops.ivf import HostIVFIndex
+
+        n = self.matrix.n
+        stale = (
+            self.host_ivf is None
+            or (n - self.host_ivf_rows)
+            > self.host_ivf_rebuild_fraction * max(self.host_ivf_rows, 1)
+        )
+        if not stale:
+            return
+        self.host_ivf = HostIVFIndex.build(
+            self.matrix.data[:n, : self.matrix.dim_pad],
+            normalize=False,  # packed rows are already unit-norm (cosine)
+            device=self.device,
+        )
+        self.host_ivf_rows = n
+
+    def _search_host_ivf(
+        self, queries: np.ndarray, k: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Host-resident IVF over the build snapshot + exact host scan of
+        the delta rows; tombstoned rows drop via the sentinel path."""
+        self._ensure_host_ivf()
+        qs = self.matrix.prepare_queries(queries)
+        # widen by the tombstone count so the dead-drop below can still
+        # return k live hits (same scheme as the exact tier's k_query)
+        n_dead = self.n_rows - self._n_live
+        k_eff = min(k + n_dead, self.host_ivf_rows)
+        dists, positions = self.host_ivf.search(
+            qs, k_eff, nprobe=32, normalize=False
+        )
+        dists = np.asarray(dists, np.float32)
+        positions = np.asarray(positions, np.int64)
+        n = self.matrix.n
+        if n > self.host_ivf_rows:
+            delta = self.matrix.data[self.host_ivf_rows : n]
+            delta_d = (1.0 - qs @ delta.T).astype(np.float32)
+            delta_i = np.arange(self.host_ivf_rows, n)[None, :].repeat(
+                len(queries), 0
+            )
+            dists = np.concatenate([dists, delta_d], axis=1)
+            positions = np.concatenate([positions, delta_i], axis=1)
+        # tombstones to +inf, then (re)establish ascending top-k
+        live = self.live_mask
+        dead = ~live[np.clip(positions, 0, max(len(live) - 1, 0))]
+        dists = np.where(dead, np.inf, dists)
+        order = np.argsort(dists, axis=1, kind="stable")[:, :k]
+        return (
+            np.take_along_axis(dists, order, axis=1),
+            np.take_along_axis(positions, order, axis=1),
         )
 
 

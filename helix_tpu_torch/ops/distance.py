@@ -44,8 +44,11 @@ SINGLE_SHOT_BYTES = 2 << 30
 
 def require_fp32_matmul() -> None:
     """The exact re-rank must be true fp32: TF32 keeps ~3 decimal digits
-    and would move ``$distance`` away from the reference.  Set at every
-    re-rank (process-wide flags, cheap to set)."""
+    and would move ``$distance`` away from the reference.  The port's one
+    policy for the flag, set before every f32 matmul that stands for the
+    reference's ``Precision.HIGHEST`` (re-rank, IVF).  The flags are
+    process-wide and only ever turned off here (torch's own default for
+    matmul), so a concurrent reader never finds TF32 switched back on."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

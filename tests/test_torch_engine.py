@@ -282,12 +282,16 @@ def _node(x):
 
 
 def test_port_engine_traversal_uses_the_native_sweep(monkeypatch):
-    """Set-reduced traversals run on the host (native C++ sweep): this
-    slice has no device adjacency.  The size floor of the traversal
-    planner is lowered so a small graph takes that route."""
+    """Set-reduced traversals go through the traversal router, which
+    samples both backends: on an engine whose device is not CUDA it tries
+    the native C++ sweep first (twice: the first run is its warm-up),
+    then the device path on the engine's device (here the CPU).  The
+    size floor of the traversal planner is lowered so a small graph
+    takes that route.  The process seeing a card changes none of it."""
     from helix_tpu.engine.exec import Executor as RefExecutor
     from helix_tpu_torch.engine.exec import Executor as PortExecutor
 
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(RefExecutor, "device_traversal_min_nodes", 0)
     monkeypatch.setattr(PortExecutor, "device_traversal_min_nodes", 0)
     requests = [
@@ -319,5 +323,28 @@ def test_port_engine_traversal_uses_the_native_sweep(monkeypatch):
         a, b = ref.execute(read), port.execute(read)
         assert json.dumps(a) == json.dumps(b)
         assert b["r"] == {1: 2, 2: 1, 3: 1}[hops]
-    assert set(port._traversal_router.ewma) == {"native"}
-    assert port.snapshots.get().padded_graph("out") is None
+    assert not port._traversal_router.device_first
+    assert port._traversal_router.runs == {"native": 2, "device": 1}
+    graph = port.snapshots.get().padded_graph("out")
+    assert graph.device == torch.device("cpu") and graph.n == 6
+
+
+@pytest.mark.parametrize("device_first,order", [
+    (True, ["device", "device", "native", "native"]),
+    (False, ["native", "native", "device", "device"]),
+])
+def test_traversal_router_bootstrap_follows_the_engine_device(
+        device_first, order, monkeypatch):
+    """The router samples device first only when told so, which the
+    engine does for a CUDA device, whatever cards the process sees."""
+    from helix_tpu_torch.engine.exec import TraversalRouter
+
+    monkeypatch.delenv("HELIX_TRAVERSAL_BACKEND", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    router = TraversalRouter(device_first=device_first)
+    seen = []
+    for _ in range(4):
+        path = router.choose(device_available=True, native_available=True)
+        router.record(path, 1e-3)
+        seen.append(path)
+    assert seen == order

@@ -109,10 +109,13 @@ def test_int4_pool_cap_walks_past_the_rung_like_the_reference(
 
 
 def test_host_ivf_rung_raises_not_implemented():
+    """The host-IVF rung, which raised NotImplementedError before the
+    port had ``ops/ivf.py``, now serves: a read finds its own row."""
     _, port = partitions("cosine", hbm_budget_bytes=BUDGETS["host"])
     assert port._use_host_ivf()
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        port.search_many(np.ones((1, 16), np.float32), 5)
+    ids, dists = port.search_many(port.matrix.data[[7, 99], :16], 5)
+    assert port.host_ivf is not None and ids.shape == (2, 5)
+    assert ids[:, 0].tolist() == [8, 100] and np.all(dists[:, 0] < 1e-6)
 
 
 def unit_data(n, d, seed):

@@ -3,8 +3,10 @@
 A subprocess blocks ``jax`` in ``sys.modules`` before anything else is
 imported, then imports every module of ``helix_tpu_torch`` (and
 ``chip_smoke``) and runs a small engine write and read on the CPU, then
-the same under a device-memory budget that puts the index on the int8
-rung (its host re-rank is ``helix_tpu.native``).
+the same under device-memory budgets that put the index on the int8
+rung (its host re-rank is ``helix_tpu.native``) and on the host-IVF
+rung, then a traversal on the device path and a BM25 search on device
+postings.
 """
 
 import subprocess
@@ -76,6 +78,36 @@ write_and_read(Engine(device="cpu"))
 # 5000 rows at dim_pad 128: int8 codes (660 kB) fit, exact copies do not
 part = write_and_read(Engine(device="cpu", hbm_budget_bytes=1_000_000))
 assert part._use_quant() and part.quant is not None
+# int4 (340 kB) does not fit either: the host-IVF rung serves
+part = write_and_read(Engine(device="cpu", hbm_budget_bytes=200_000))
+assert part._use_host_ivf() and part.host_ivf is not None
+
+import os
+
+from helix_tpu_torch.engine.exec import Executor
+
+Executor.device_traversal_min_nodes = 0
+os.environ["HELIX_TRAVERSAL_BACKEND"] = "device"
+engine = Engine(device="cpu")
+engine.execute(request("write", [{"CreateIndex": {"spec": {"NodeText": {
+    "label": "P", "property": "body", "tenant_property": None}},
+    "if_not_exists": True}}], {}, {}))
+for x in range(4):
+    engine.execute(request("write", [{"AddN": {"label": "P", "properties": [
+        ["x", {"Value": {"I64": x}}],
+        ["body", {"Value": {"String": f"node {x} of a chain"}}]]}}], {}, {}))
+engine.execute(request("write", [{"N": {"Ids": [1, 2, 3]}}, {"AddE": {
+    "label": "next", "to": {"Ids": [4]}, "properties": []}}], {}, {}))
+out = engine.execute(request("read", [{"N": {"Ids": [1]}}, {"Out": "next"},
+                                      "Dedup", "Count"], {}, {}, returns=["r"]))
+assert out["r"] == 1 and engine._traversal_router.runs["device"] == 1, out
+part = engine.texts.indexes[("NodeText", "P", "body")].partitions[("",)]
+part.device_threshold = 1
+out = engine.execute(request("read", [{"TextSearchNodes": {
+    "label": "P", "property": "body", "query_text": {"Expr": {"Param": "q"}},
+    "k": {"Expr": {"Param": "k"}}}}, {"ValueMap": ["$id", "x"]}],
+    {"q": "node 2", "k": 2}, {"q": "String", "k": "I64"}, returns=["r"]))
+assert out["r"][0]["x"] == 2 and part._device[1] is not None, out
 assert sys.modules["jax"] is None
 assert not [m for m in sys.modules if m.startswith("jax.")]
 assert not [m for m in sys.modules if m.startswith("helix_tpu.engine")]
