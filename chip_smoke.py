@@ -7,18 +7,24 @@ Needs one CUDA device (exits nonzero without one, and prints no result),
 the repository checkout (it imports ``helix_tpu_torch``, never JAX).
 Phases, each failing the run on a bad check:
 
-1. Build the hand-written kernels from ``helix_tpu_torch/csrc`` and the
-   native host library (``helix_tpu/native``: the quantized rungs' and
-   host IVF's re-rank, the traversal's native sweep).
+1. Build the hand-written kernels from ``helix_tpu_torch/csrc`` (printing
+   ``ptxas``' registers and spills) and the native host library
+   (``helix_tpu_torch/native``: the quantized rungs' and host IVF's
+   re-rank, the traversal's native sweep).
 2. Kernel 1: ``bucket_scores`` against its plain PyTorch version at the
-   main path's shapes (1M rows padded to 8192, D=128, B=256), with the
-   tolerance rule of ``tests/test_torch_fused_topk.py`` at 1e-5; both
-   timed with CUDA events (median over fresh query batches).
+   main path's shapes (1M rows padded to 8192, D=128, B=256), at B=128
+   (single reads) and at D=768 (queries streamed through the rings),
+   with n_valid in mid-bucket, with the tolerance rule of
+   ``tests/test_torch_fused_topk.py`` at 1e-5; the kernel, its plain
+   version, the product-only ``torch.matmul`` and a device copy of the
+   rows timed with CUDA events (median over fresh query batches, the
+   order rotating).
 3. Kernels 2 and 3: ``i8_bucket_scores`` and ``i4_bucket_scores`` against
    their plain versions at the same shapes, on random unit rows
    quantized by the port's own quantizers: the outputs must be equal bit
    for bit, a bucket holding a zero row must flush to a zero winner, and
-   both sides are timed the same way.
+   both sides and the product-only ``torch._int_mm`` (on the unpacked
+   codes for int4) are timed the same way.
 4. Engine (exact): ``Engine(device="cuda")`` ingests 1M x 128 clustered
    vectors (``bench.py``'s generator, seed 42) through ``ForEach AddN``
    write batches, then answers single-query reads through
@@ -35,7 +41,7 @@ Phases, each failing the run on a bad check:
    ``auto``: equal JSON on all three.
 5. Graph ops: ``bench.py``'s traversal shape (1M nodes, degree 16, 4
    labels): ``khop_mask`` / ``khop_count`` / ``hybrid_expand`` on the
-   card against ``helix_tpu.native.bfs_khop``, masks and counts equal,
+   card against ``helix_tpu_torch.native.bfs_khop``, masks and counts equal,
    both sides timed.
 6. Ladder: ``Engine(device="cuda", hbm_budget_bytes=96 MiB)`` ingests 2M
    rows of the same generator.  At 500,000 rows the int8 rung serves
@@ -76,7 +82,8 @@ BATCH = 256
 K = 10
 INGEST_CHUNK = 50_000
 TOL = 1e-5
-KERNEL_RUNS = 5
+KERNEL_RUNS = 7
+KERNEL_REPS = 10  # back-to-back calls per timed sample
 N_PROBE = 128  # p90 of the per-request latency has 12 samples past it
 N_BATCHES = 16
 # The ladder phase's budget and rows (steps: LADDER_STEPS).
@@ -150,50 +157,84 @@ def compare_packed(got: torch.Tensor, want: torch.Tensor, sims: torch.Tensor,
     return float(diff.max().item())
 
 
-def cuda_ms(fn, *args, **kwargs) -> float:
-    """CUDA-event time of one ``fn(*args, **kwargs)`` on the current
-    stream, in ms."""
+def cuda_ms(fn, *args, reps: int = 1, **kwargs) -> float:
+    """CUDA-event time of ``fn(*args, **kwargs)`` on the current stream,
+    in ms: the mean of ``reps`` calls issued back to back, so that past
+    the first the host's part of a call overlaps the device's work."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    fn(*args, **kwargs)
+    for _ in range(reps):
+        fn(*args, **kwargs)
     end.record()
     end.synchronize()
-    return start.elapsed_time(end)
+    return start.elapsed_time(end) / reps
 
 
-def time_pair(kernel, plain, inputs: list) -> tuple[float, float]:
-    """Median CUDA-event times of ``kernel(*args)`` and ``plain(*args)``
-    over fresh inputs, alternating which side runs first."""
-    cuda_ms(plain, *inputs[0])  # warm-up
-    ks, ps = [], []
+def time_sides(sides: dict, inputs: list, reps: int = KERNEL_REPS) -> dict:
+    """Median CUDA-event times of each side ``fn(*args)`` over fresh
+    inputs (each a mean of ``reps`` back-to-back calls); the order of
+    the sides rotates from one input to the next, so each runs first as
+    often as the others."""
+    names = list(sides)
+    for name in names:  # warm-up
+        cuda_ms(sides[name], *inputs[0])
+    times: dict = {name: [] for name in names}
     for i, args in enumerate(inputs):
-        if i % 2:
-            ks.append(cuda_ms(kernel, *args))
-            ps.append(cuda_ms(plain, *args))
-        else:
-            ps.append(cuda_ms(plain, *args))
-            ks.append(cuda_ms(kernel, *args))
-    return float(np.median(ks)), float(np.median(ps))
+        r = i % len(names)
+        for name in names[r:] + names[:r]:
+            times[name].append(cuda_ms(sides[name], *args, reps=reps))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+# H100 SXM data-sheet peaks (dense): the bound of a kernel is the larger
+# of its bytes over the memory rate and its operations over the peak rate
+# of their type, each input read once and each output written once.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_PER_S = 989e12
+PEAK_INT8_PER_S = 1979e12
+
+
+def bound(n_bytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def unit_rows(n: int, d: int, gen: torch.Generator,
+              device: torch.device) -> torch.Tensor:
+    xs = torch.randn((n, d), generator=gen, device=device)
+    return (xs / xs.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+
+
+def masked_sims(xs16: torch.Tensor, qs16: torch.Tensor,
+                n_valid: int) -> torch.Tensor:
+    """The f32 score matrix ``[N, B]`` with rows past ``n_valid``
+    masked, as ``compare_packed`` reads it."""
+    from helix_tpu_torch.ops.fused_topk import NEG_SENTINEL
+
+    rows = torch.arange(xs16.shape[0], device=xs16.device)[:, None]
+    return torch.where(rows < n_valid, xs16.float() @ qs16.float().T,
+                       NEG_SENTINEL)
 
 
 def kernel_phase(device: torch.device) -> dict:
+    """Kernel 1 against its plain version at the main path's shapes and
+    two more (B=128 single reads, a wide D whose queries stream), the
+    denormal pin, the times of the kernel, its plain version and the
+    product-only library call, and the fused coarse + re-rank step."""
     from helix_tpu_torch.ops import fused_topk as F
 
     n = F.pad_rows_for_fused(N_ROWS)
     gen = torch.Generator(device=device).manual_seed(7)
-    xs = torch.randn((n, DIM), generator=gen, device=device)
-    xs16 = (xs / xs.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-    del xs
-    queries = []
-    for _ in range(KERNEL_RUNS):
-        q = torch.randn((BATCH, DIM), generator=gen, device=device)
-        queries.append((q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+    xs16 = unit_rows(n, DIM, gen, device)
+    queries = [unit_rows(BATCH, DIM, gen, device) for _ in range(KERNEL_RUNS)]
 
     # Pin the FTZ rule on the card: bucket 0 scores negative for query 0
     # except a zeroed (tombstone) row, which packs to a denormal that
     # must flush to a zero with index bits 0, as in the reference.
     scale = torch.linspace(0.5, 1.0, F.BUCKET, device=device)[:, None]
+    saved = xs16[: F.BUCKET].clone()
     xs16[: F.BUCKET] = (-queries[0][0].float() * scale).to(torch.bfloat16)
     xs16[5] = 0
     got = F.bucket_scores(xs16, queries[0], N_ROWS)
@@ -201,16 +242,52 @@ def kernel_phase(device: torch.device) -> dict:
     want = F.bucket_scores_reference(xs16, queries[0], N_ROWS)
     check(int(got[0, 0].view(torch.int32)) == 0 == int(
         want[0, 0].view(torch.int32)), "denormal winner was not flushed")
-    rows = torch.arange(n, device=device)[:, None]
-    sims = torch.where(rows < N_ROWS, xs16.float() @ queries[0].float().T,
-                       F.NEG_SENTINEL)
-    max_err = compare_packed(got, want, sims, TOL)
-    del sims, want, got
+    max_err = compare_packed(got, want, masked_sims(xs16, queries[0], N_ROWS),
+                             TOL)
+    xs16[: F.BUCKET] = saved
+    del got, want, saved
 
-    ms, plain_ms = time_pair(F.bucket_scores, F.bucket_scores_reference,
-                             [(xs16, q, N_ROWS) for q in queries])
-    log(f"kernel bucket_scores N={n} D={DIM} B={BATCH}: {ms:.4f} ms "
-        f"(plain {plain_ms:.4f} ms), max unpacked |err| {max_err:.3g}")
+    # The other shapes, each with n_valid in mid-bucket.
+    shapes = {}
+    for d, b in ((DIM, 128), (768, BATCH)):
+        xw = xs16 if d == DIM else unit_rows(n, d, gen, device)
+        qw = unit_rows(b, d, gen, device)
+        n_valid = N_ROWS - 37
+        err = compare_packed(F.bucket_scores(xw, qw, n_valid),
+                             F.bucket_scores_reference(xw, qw, n_valid),
+                             masked_sims(xw, qw, n_valid), TOL)
+        shapes[f"B={b} D={d}"] = err
+        max_err = max(max_err, err)
+        del xw, qw
+    log(f"kernel bucket_scores agrees with its plain version (1e-5 + one "
+        f"packing quantum) at B={BATCH} D={DIM} (denormal pinned), "
+        f"{', '.join(shapes)} with n_valid={N_ROWS - 37}: max unpacked "
+        f"|err| {max_err:.3g}")
+
+    def library(xs, qs, n_valid):  # the product alone, bf16 out
+        return torch.matmul(xs, qs.T)
+
+    def copy(xs, qs, n_valid):  # what the card's memory achieves
+        return xs.clone()
+
+    inputs = [(xs16, q, N_ROWS) for q in queries]
+    t = time_sides({"kernel": F.bucket_scores,
+                    "plain": F.bucket_scores_reference,
+                    "library": library, "copy": copy}, inputs)
+    b_ms, b_by = bound(n * DIM * 2 + BATCH * DIM * 2 + n // 64 * BATCH * 4,
+                       2.0 * n * DIM * BATCH, PEAK_BF16_PER_S)
+    log(f"kernel bucket_scores N={n} D={DIM} B={BATCH}: {t['kernel']:.4f} ms "
+        f"(plain {t['plain']:.4f} ms, torch.matmul product only "
+        f"{t['library']:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
+        f"{b_ms / t['kernel']:.1%} of the bound); a device copy of the "
+        f"rows (read + write {2 * n * DIM * 2} bytes) {t['copy']:.4f} ms = "
+        f"{2 * n * DIM * 2 / t['copy'] / 1e9:.3f} TB/s")
+    q128 = [(xs16, q[:128].contiguous(), N_ROWS) for q in queries]
+    t128 = time_sides({"kernel": F.bucket_scores, "library": library}, q128)
+    b128, _ = bound(n * DIM * 2 + 128 * DIM * 2 + n // 64 * 128 * 4,
+                    2.0 * n * DIM * 128, PEAK_BF16_PER_S)
+    log(f"kernel bucket_scores N={n} D={DIM} B=128: {t128['kernel']:.4f} ms "
+        f"(torch.matmul {t128['library']:.4f} ms, bound {b128:.4f} ms)")
 
     # The whole fused coarse + re-rank step at the engine's k bucket (16
     # for k=10): its time less the kernel's is the top-k / re-rank tail.
@@ -222,7 +299,8 @@ def kernel_phase(device: torch.device) -> dict:
     ]))
     log(f"fused_topk (kernel + top-k + f32 re-rank) B={BATCH}: "
         f"{fused_ms:.4f} ms")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": max_err, "ms": t["kernel"], "plain_ms": t["plain"],
+            "library_ms": t["library"], "bound_ms": b_ms, "bound_by": b_by,
             "fused_ms": fused_ms}
 
 
@@ -274,12 +352,20 @@ def quant_kernel_phase(device: torch.device) -> dict:
     packed = torch.from_numpy(packed).to(device)
     bsc = torch.from_numpy(bsc).to(device)
 
+    codes4 = Q4.unpack_int4(packed)  # the library call's int8 operand
+    buckets = n // F.BUCKET
+    out_bytes = buckets * BATCH * 4
+    ops = 2.0 * n * DIM * BATCH
     out = {}
-    for name, kernel, plain, operands in (
+    for name, kernel, plain, operands, library, in_bytes in (
         ("i8_bucket_scores", Q.i8_bucket_scores,
-         Q.i8_bucket_scores_reference, lambda q: (xi, q, N_ROWS)),
+         Q.i8_bucket_scores_reference, lambda q: (xi, q, N_ROWS),
+         lambda xs, q, n_valid: torch._int_mm(xs, q.t()),
+         n * DIM + BATCH * DIM),
         ("i4_bucket_scores", Q4.i4_bucket_scores,
-         Q4.i4_bucket_scores_reference, lambda q: (packed, bsc, q, N_ROWS)),
+         Q4.i4_bucket_scores_reference, lambda q: (packed, bsc, q, N_ROWS),
+         lambda p, s, q, n_valid: torch._int_mm(codes4, q.t()),
+         n * DIM // 2 + buckets * 4 + BATCH * DIM),
     ):
         got = kernel(*operands(q_i8[0]))
         want = plain(*operands(q_i8[0]))
@@ -290,11 +376,17 @@ def quant_kernel_phase(device: torch.device) -> dict:
             err = max(err, check_bitwise(name, kernel(*operands(q)),
                                          plain(*operands(q))))
         del got, want
-        ms, plain_ms = time_pair(kernel, plain, [operands(q) for q in q_i8])
-        log(f"kernel {name} N={n} D={DIM} B={BATCH}: {ms:.4f} ms (plain "
-            f"{plain_ms:.4f} ms), bitwise equal, max |err| {err:.3g}, "
-            "zero-row bucket flushed")
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        t = time_sides({"kernel": kernel, "plain": plain, "library": library},
+                       [operands(q) for q in q_i8])
+        b_ms, b_by = bound(in_bytes + out_bytes, ops, PEAK_INT8_PER_S)
+        log(f"kernel {name} N={n} D={DIM} B={BATCH}: {t['kernel']:.4f} ms "
+            f"(plain {t['plain']:.4f} ms, torch._int_mm product only "
+            f"{t['library']:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
+            f"{b_ms / t['kernel']:.1%} of the bound), bitwise equal, max "
+            f"|err| {err:.3g}, zero-row bucket flushed")
+        out[name] = {"max_abs_err": err, "ms": t["kernel"],
+                     "plain_ms": t["plain"], "library_ms": t["library"],
+                     "bound_ms": b_ms, "bound_by": b_by}
     return out
 
 
@@ -443,14 +535,14 @@ def doc_partition(engine):
 
 class HostRerankClock:
     """Wall time spent in the quantized rungs' host re-rank
-    (``helix_tpu.native.rerank``, which they import at each call), so a
+    (``helix_tpu_torch.native.rerank``, which they import at each call), so a
     batch's time splits into re-rank and the rest."""
 
     def __init__(self):
         self.ms = 0.0
 
     def __enter__(self):
-        from helix_tpu import native
+        from helix_tpu_torch import native
 
         self._native = native
         self._rerank = native.rerank
@@ -774,10 +866,10 @@ def graph_ops_phase(device: torch.device, seeds: list,
     2-hop from 0.1% start masks kept by a 50% filter, and a 1-hop
     expansion of the exact search's top-k.  The port's ``khop_mask`` /
     ``khop_count`` / ``hybrid_expand`` on the device against
-    ``helix_tpu.native.bfs_khop``: masks and counts equal.  Times: CUDA
+    ``helix_tpu_torch.native.bfs_khop``: masks and counts equal.  Times: CUDA
     events for the device side, resident and with the mask's H2D/D2H;
     wall time for the native sweep."""
-    from helix_tpu import native
+    from helix_tpu_torch import native
     from helix_tpu_torch.ops import csr as C
 
     rng = np.random.default_rng(5)
@@ -1148,13 +1240,17 @@ def main() -> int:
     card_line = card()
     log(f"card: {card_line}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    from helix_tpu import native
+    from helix_tpu_torch import native
     from helix_tpu_torch import kernels
 
     t = time.perf_counter()
     kernels.load()
     log(f"kernel build + load: {time.perf_counter() - t:.1f} s "
         f"({kernels.library_path().name})")
+    for source, text in kernels.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {source}: {line.strip()}")
     t = time.perf_counter()
     native.load()
     log(f"native host library build + load: {time.perf_counter() - t:.1f} s")
@@ -1190,6 +1286,9 @@ def main() -> int:
         "max_abs_err": kern[name]["max_abs_err"],
         "ms": kern[name]["ms"],
         "plain_ms": kern[name]["plain_ms"],
+        "bound_ms": kern[name]["bound_ms"],
+        "bound_by": kern[name]["bound_by"],
+        "library_ms": kern[name]["library_ms"],
     } for name, source, replaces in KERNELS]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

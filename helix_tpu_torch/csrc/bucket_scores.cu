@@ -16,164 +16,599 @@
 //
 // FTZ: a row that scores exactly 0 (a zeroed tombstone row) packs to a
 // denormal.  The TPU and XLA flush denormals, so the reference reports
-// such a winner as a signed zero with index bits 0.  This kernel applies
-// that rule explicitly; it must not be built with --use_fast_math, whose
-// flush would apply to every float operation instead.
+// such a winner as a signed zero with index bits 0.  The flush is monotone
+// in the float order, so flushing the bucket's max equals the max of the
+// flushed values; the kernel applies it once per output.  It must not be
+// built with --use_fast_math, whose flush would apply to every float
+// operation instead.
 //
 // What bounds it on an H100: at N = 1,007,616 (1M rows padded to 8192),
-// D = 128, B = 256 the kernel reads ~258 MB of bf16 rows and does ~66
-// GFLOP, ~256 FLOP per byte, near the card's bf16 ridge (~295); with
-// B = 128 (single requests padded) it falls below the ridge.  So the row
-// read must not repeat per query tile: one block owns a 128-row tile (two
-// buckets) and walks every 128-query tile itself, so a row tile comes
-// from device memory once and its re-reads for later query tiles hit L2.
-// The queries (64 KB at B = 256) stay L2-resident for the whole grid.
+// D = 128, B = 256 the kernel must read 258 MB of bf16 rows and write
+// 16 MB of winners (82 us at 3.35 TB/s) and do 66 GFLOP (67 us at 989
+// TFLOP/s).  Both limits are close, so loads, tensor-core products and
+// the epilogue all have to overlap.  The design:
 //
-// Design (simple first): 8 warps, bf16 WMMA 16x16x16 fragments with f32
-// accumulators, rows and queries staged through shared memory along D in
-// 64-column chunks, the 128 x 128 f32 score tile written to shared memory,
-// then one thread per (bucket, query) packs and reduces its 64 rows and
-// writes one f32.  Output layout is [N / 64, B] as in the reference, so
-// consecutive threads store consecutive queries (coalesced).  wgmma, TMA
-// and a pipelined, persistent grid are later work.
+// - Persistent grid: one block per SM walks 64-row buckets (bucket =
+//   blockIdx.x + i * gridDim.x), so the ragged tail is at most one bucket
+//   per block.
+// - Queries resident in shared memory: a block loads all B queries once
+//   (64 KB at B = 256, D = 128).  Where B * D * 2 does not fit beside
+//   rings of at least MIN_RESIDENT_DEPTH stages (wide D), each stage
+//   carries its K-chunk of the queries beside the rows instead.
+// - Row tiles through rings of stages: one producer thread issues TMA
+//   loads (cp.async.bulk.tensor, 128-byte swizzle) of 64 rows x 64
+//   columns (8 KB); full/empty mbarriers hand stages over.  Each consumer
+//   has its own ring: a parity wait on an mbarrier cannot tell round r
+//   from round r - 2, so a stage must not be shared by consumers that
+//   skip each other's rounds.
+// - wgmma with M = 64 = one bucket: two consumer warpgroups take alternate
+//   buckets, so one's epilogue overlaps the other's products.  Each
+//   issues one m64nBk16 bf16 product per K step of 16 (n256 at B = 256:
+//   the row tile is read from shared memory once for all queries) from
+//   the swizzled ring stage and the swizzled queries; f32 sums stay in
+//   registers (B / 2 per thread).  The producer warpgroup gives its
+//   registers up (setmaxnreg) so the consumers hold 232 each.
+// - Epilogue in registers: in the m64nNk16 accumulator layout a value's
+//   row within the warpgroup is its in-bucket row, so each thread packs
+//   its values with their row index, takes the max of its two rows,
+//   reduce-scatters over the three lane bits that select rows (28
+//   shuffles per 128 queries instead of 96), and the four warps merge
+//   through a small shared buffer (4 x B floats) before B consecutive
+//   floats per bucket are written.  No f32 score tile goes to shared
+//   memory.
 
-#include <cuda_bf16.h>
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int BUCKET = 64;
-constexpr int BM = 128;  // rows per block: two buckets
-constexpr int BN = 128;  // queries per tile
-constexpr int KC = 64;   // depth staged per step
-constexpr int WARPS_M = 4;
-constexpr int WARPS_N = 2;
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int WM = BM / WARPS_M;  // 32 rows per warp
-constexpr int WN = BN / WARPS_N;  // 64 queries per warp
-constexpr int FM = WM / 16;
-constexpr int FN = WN / 16;
-constexpr int LDA = KC + 8;  // bf16 stride of the staged tiles (padding)
-constexpr int LDS = BN + 4;  // f32 stride of the score tile
+constexpr int KCHUNK = 64;  // bf16 columns in one 128-byte swizzle row
+constexpr int ROW_TILE_BYTES = BUCKET * KCHUNK * 2;  // 8 KB
+constexpr int CONSUMERS = 2;  // warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // + one producer
+constexpr int PRODUCER_REGS = 40;   // setmaxnreg: 128 x 40 + 256 x 232
+constexpr int CONSUMER_REGS = 232;  // <= 65,536 registers of the SM
+constexpr int MAX_DEPTH = 8;        // ring stages per consumer
+constexpr int MIN_RESIDENT_DEPTH = 4;
+constexpr int SMEM_LIMIT = 232448;  // the opt-in maximum of one block
+constexpr int MAX_DEVICES = 64;
 constexpr float NEG_SENTINEL = -3.0e38f;
-constexpr size_t SMEM_BYTES =
-    sizeof(__nv_bfloat16) * (BM + BN) * LDA + sizeof(float) * BM * LDS;
 
-static_assert(THREADS == 2 * BN, "epilogue maps one thread per (bucket, query)");
-static_assert(BM == 2 * BUCKET, "a block owns two buckets");
+// Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
+// repeats every 8 rows of 128 bytes, and TMA and wgmma both read it from
+// the address bits): [resident queries][each consumer's ring of `depth`
+// stages][reduction buffers][mbarriers].
+struct Plan {
+  bool resident;
+  int depth;        // stages per consumer
+  int stage_bytes;
+  int query_bytes;  // resident queries, 0 when streamed
+  int smem_bytes;   // dynamic shared memory to request
+};
 
-__global__ void __launch_bounds__(THREADS)
-bucket_scores_kernel(const __nv_bfloat16* __restrict__ xs,
-                     const __nv_bfloat16* __restrict__ qs,
-                     float* __restrict__ out, int d, int b, int n_valid) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* xs_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* qs_s = xs_s + BM * LDA;
-  float* sc = reinterpret_cast<float*>(qs_s + BN * LDA);
+int red_bytes(int b) { return CONSUMERS * 2 * 4 * b * 4; }
+int fixed_bytes(int b) {
+  return 1024 + red_bytes(b) + (2 * CONSUMERS * MAX_DEPTH + 1) * 8;
+}
 
-  const long long row0 = static_cast<long long>(blockIdx.x) * BM;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WARPS_N;
-  const int wn = warp % WARPS_N;
-  constexpr int VEC = 8;  // bf16 per 16-byte load
-  constexpr int CHUNKS = KC / VEC;
+// The plan follows from the shape alone.  A consumer holds two stages at
+// once (one chunk's products in flight while the next one's are issued),
+// so a ring needs at least two.
+Plan make_plan(int d, int b) {
+  Plan p{};
+  const long long q = 2LL * b * d;
+  const long long room = SMEM_LIMIT - fixed_bytes(b);
+  p.resident = q + CONSUMERS * MIN_RESIDENT_DEPTH * ROW_TILE_BYTES <= room;
+  p.query_bytes = p.resident ? static_cast<int>(q) : 0;
+  p.stage_bytes = ROW_TILE_BYTES + (p.resident ? 0 : b * KCHUNK * 2);
+  const long long fit = (room - p.query_bytes) / (CONSUMERS * p.stage_bytes);
+  p.depth = static_cast<int>(fit < MAX_DEPTH ? fit : MAX_DEPTH);
+  p.smem_bytes = fixed_bytes(b) + p.query_bytes +
+                 CONSUMERS * p.depth * p.stage_bytes;
+  return p;
+}
 
-  for (int q0 = 0; q0 < b; q0 += BN) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-    for (int k0 = 0; k0 < d; k0 += KC) {
-      for (int idx = threadIdx.x; idx < BM * CHUNKS; idx += THREADS) {
-        const int r = idx / CHUNKS;
-        const int c = (idx % CHUNKS) * VEC;
-        *reinterpret_cast<uint4*>(xs_s + r * LDA + c) =
-            *reinterpret_cast<const uint4*>(xs + (row0 + r) * d + k0 + c);
-      }
-      for (int idx = threadIdx.x; idx < BN * CHUNKS; idx += THREADS) {
-        const int r = idx / CHUNKS;
-        const int c = (idx % CHUNKS) * VEC;
-        *reinterpret_cast<uint4*>(qs_s + r * LDA + c) =
-            *reinterpret_cast<const uint4*>(
-                qs + static_cast<long long>(q0 + r) * d + k0 + c);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a[FM];
-        // B(k, n) = qs[n, k]: the query tile read as a column-major K x N.
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> q[FN];
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-          wmma::load_matrix_sync(a[i], xs_s + (wm * WM + i * 16) * LDA + kk,
-                                 LDA);
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::load_matrix_sync(q[j], qs_s + (wn * WN + j * 16) * LDA + kk,
-                                 LDA);
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int j = 0; j < FN; ++j)
-            wmma::mma_sync(acc[i][j], a[i], q[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
 
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(sc + (wm * WM + i * 16) * LDS + wn * WN + j * 16,
-                                acc[i][j], LDS, wmma::mem_row_major);
-    __syncthreads();
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
 
-    // Epilogue: thread -> (local bucket, query); rows in order, so the
-    // shared-memory reads of a warp are 32 consecutive floats.
-    const int lb = threadIdx.x / BN;
-    const int j = threadIdx.x % BN;
-    float best = __uint_as_float(0xff800000u);  // -inf
-    for (int r = 0; r < BUCKET; ++r) {
-      const int lr = lb * BUCKET + r;
-      float s = sc[lr * LDS + j];
-      if (row0 + lr >= n_valid) s = NEG_SENTINEL;
-      // row0 is a multiple of 64, so r is the row's in-bucket index.
-      unsigned bits = (__float_as_uint(s) & ~63u) | static_cast<unsigned>(r);
-      if ((bits & 0x7f800000u) == 0u) bits &= 0x80000000u;
-      best = fmaxf(best, __uint_as_float(bits));
-    }
-    out[(static_cast<long long>(blockIdx.x) * 2 + lb) * b + q0 + j] = best;
-    __syncthreads();  // the next query tile rewrites the staged tiles
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// The spin loop stays inside one asm block: a C++ loop around try_wait
+// would leave the warp divergent where the wgmma instructions that follow
+// need it converged.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA tile: box {64 columns, rows} at (column c0, row c1).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand in 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (stride byte offset);
+// the leading byte offset is unused by this layout.  A K step of 16 bf16
+// (32 bytes) inside the swizzle row advances the start address.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// The accumulators are written by asynchronous products: pin them so the
+// compiler neither reads them before wgmma_wait nor moves them.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[128 x 16]^T, bf16 in, f32 sums.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 256] (+)= A[64 x 16] * B[256 x 16]^T, bf16 in, f32 sums.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// B / 128 query tiles in one product: n128 at B = 128, n256 at B = 256
+// (one instruction reads the row tile once for all queries).
+template <int NT>
+__device__ __forceinline__ void wgmma_rows_queries(float (&d)[NT * 64],
+                                                   uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  if constexpr (NT == 2)
+    wgmma_m64n256k16(d, a, b, accumulate);
+  else
+    wgmma_m64n128k16(d, a, b, accumulate);
+}
+
+// One LOP3: the score's bits under `keep`, then the row's `put` bits.
+__device__ __forceinline__ float pack(float s, uint32_t keep, uint32_t put) {
+  return __uint_as_float((__float_as_uint(s) & keep) | put);
+}
+
+__device__ __forceinline__ float flush_denormal(float v) {
+  uint32_t bits = __float_as_uint(v);
+  if ((bits & 0x7f800000u) == 0u) bits &= 0x80000000u;
+  return __uint_as_float(bits);
+}
+
+// One half-exchange of the reduce-scatter: lanes that differ in `bit`
+// swap halves of m[0, 2h) and keep the max of the half they own in
+// m[0, h).
+template <int H>
+__device__ __forceinline__ void exchange(float (&m)[32], bool hi, int bit) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = hi ? m[i] : m[i + H];
+    const float keep = hi ? m[i + H] : m[i];
+    m[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, bit));
   }
+}
+
+// Reduce query tile N (128 columns) of the accumulator to the max of each
+// column over this warp's 16 rows, written to buf[0, 128).  Value i of
+// the accumulator sits at row r0 + 8 * ((i >> 1) & 1) and column
+// 8 * (i >> 2) + 2 * c + (i & 1) (c = lane % 4), so tile N is values
+// [64 N, 64 N + 64); each is packed as (bits & keep) | put of its row.
+template <int N, int R>
+__device__ __forceinline__ void reduce_tile(const float (&acc)[R], float* buf,
+                                            uint32_t keep0, uint32_t put0,
+                                            uint32_t keep1, uint32_t put1,
+                                            int lane) {
+  float m[32];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      m[2 * j + e] = fmaxf(pack(acc[64 * N + 4 * j + e], keep0, put0),
+                           pack(acc[64 * N + 4 * j + 2 + e], keep1, put1));
+  // Reduce-scatter over the lane bits 4, 3, 2 (the row groups): lane
+  // (g, c) ends with the columns 16 g + {0, 8} + 2 c + {0, 1}.
+  exchange<16>(m, lane & 16, 16);
+  exchange<8>(m, lane & 8, 8);
+  exchange<4>(m, lane & 4, 4);
+  float* col = buf + 16 * (lane / 4) + 2 * (lane % 4);
+  *reinterpret_cast<float2*>(col) = make_float2(m[0], m[1]);
+  *reinterpret_cast<float2*>(col + 8) = make_float2(m[2], m[3]);
+}
+
+// NT = B / 128 query tiles.  RESIDENT: the queries stay in shared memory
+// for the block's life; otherwise each stage carries its K-chunk of them.
+template <int NT, bool RESIDENT>
+__global__ void __launch_bounds__(THREADS, 1)
+    bucket_scores_kernel(const __grid_constant__ CUtensorMap rows_map,
+                         const __grid_constant__ CUtensorMap queries_map,
+                         float* __restrict__ out, int n_buckets, int n_valid,
+                         int k_chunks, int depth, int stage_bytes) {
+  constexpr int B = 128 * NT;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* base = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t q_addr = smem_u32(base);
+  const uint32_t ring = q_addr + (RESIDENT ? B * KCHUNK * 2 * k_chunks : 0);
+  float* red = reinterpret_cast<float*>(base + (ring - q_addr) +
+                                        CONSUMERS * depth * stage_bytes);
+  // Stage s of consumer c: ring + (c * depth + s) * stage_bytes, its
+  // barriers full + 8 * (c * MAX_DEPTH + s) and empty + the same.
+  const uint32_t full = smem_u32(red + CONSUMERS * 2 * 4 * B);
+  const uint32_t empty = full + 8 * CONSUMERS * MAX_DEPTH;
+  const uint32_t q_bar = empty + 8 * CONSUMERS * MAX_DEPTH;
+
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < CONSUMERS; ++c)
+      for (int s = 0; s < depth; ++s) {
+        mbar_init(full + 8 * (c * MAX_DEPTH + s), 1);
+        mbar_init(empty + 8 * (c * MAX_DEPTH + s), 128);
+      }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int grid = gridDim.x;
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  if (wg == CONSUMERS) {
+    // Producer warpgroup: hands its registers to the consumers, and one
+    // thread keeps both rings full, the block's buckets alternating
+    // between them.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (t != 0) return;
+    if (RESIDENT) {
+      mbar_expect_tx(q_bar, B * KCHUNK * 2 * k_chunks);
+      for (int k = 0; k < k_chunks; ++k)
+        tma_load(q_addr + k * B * KCHUNK * 2, &queries_map, q_bar,
+                 k * KCHUNK, 0);
+    }
+    int item = 0;
+    for (int bucket = blockIdx.x; bucket < n_buckets; bucket += grid, ++item) {
+      const int c = item % CONSUMERS;
+      uint32_t seq = static_cast<uint32_t>(item / CONSUMERS) * k_chunks;
+      for (int k = 0; k < k_chunks; ++k, ++seq) {
+        const uint32_t s = seq % depth;
+        const uint32_t round = seq / depth;
+        const uint32_t bar = 8 * (c * MAX_DEPTH + s);
+        if (round) mbar_wait(empty + bar, (round - 1) & 1);
+        const uint32_t stage = ring + (c * depth + s) * stage_bytes;
+        mbar_expect_tx(full + bar, stage_bytes);
+        tma_load(stage, &rows_map, full + bar, k * KCHUNK, bucket * BUCKET);
+        if (!RESIDENT)
+          tma_load(stage + ROW_TILE_BYTES, &queries_map, full + bar,
+                   k * KCHUNK, 0);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg takes the block's buckets wg, wg + 2, ...
+  // from its own ring, so it sees every round of its stages' barriers.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const uint32_t r0 = warp * 16 + lane / 4;  // this thread's rows
+  const uint32_t r1 = r0 + 8;
+  const uint32_t my_full = full + 8 * wg * MAX_DEPTH;
+  const uint32_t my_empty = empty + 8 * wg * MAX_DEPTH;
+  const uint32_t my_ring = ring + wg * depth * stage_bytes;
+
+  float acc[NT * 64];
+#pragma unroll
+  for (int i = 0; i < NT * 64; ++i) acc[i] = 0.0f;
+
+  if (RESIDENT) mbar_wait(q_bar, 0);
+  int iter = 0;
+  for (int bucket = blockIdx.x + wg * grid; bucket < n_buckets;
+       bucket += CONSUMERS * grid, ++iter) {
+    const uint32_t seq0 = static_cast<uint32_t>(iter) * k_chunks;
+    uint32_t prev = 0;
+    // No instruction but the products touches the accumulators from here
+    // to wgmma_wait<0>: anything else would serialize the products.
+    fence_acc(acc);
+    for (int k = 0; k < k_chunks; ++k) {
+      const uint32_t seq = seq0 + k;
+      const uint32_t s = seq % depth;
+      mbar_wait(my_full + 8 * s, (seq / depth) & 1);
+      wgmma_fence();
+      const uint32_t a = my_ring + s * stage_bytes;
+      const uint32_t q = RESIDENT ? q_addr + k * B * KCHUNK * 2
+                                  : a + ROW_TILE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < KCHUNK / 16; ++kk)
+        wgmma_rows_queries<NT>(acc, sw128_desc(a + kk * 32),
+                               sw128_desc(q + kk * 32), k | kk);
+      wgmma_commit();
+      if (k > 0) {
+        // The previous chunk's products are done: release its stage (every
+        // thread arrives, so no branch sits between the products).
+        wgmma_wait<1>();
+        mbar_arrive(my_empty + 8 * prev);
+      }
+      prev = s;
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    mbar_arrive(my_empty + 8 * prev);
+
+    // Epilogue.  The row mask folds into the pack: a live row keeps its
+    // score's high bits (and ~63), a dead row keeps none and takes the
+    // sentinel's, so masking costs no instruction per value and no branch.
+    const int row0 = bucket * BUCKET;
+    const uint32_t neg_hi = __float_as_uint(NEG_SENTINEL) & ~63u;
+    const bool dead0 = row0 + static_cast<int>(r0) >= n_valid;
+    const bool dead1 = row0 + static_cast<int>(r1) >= n_valid;
+    const uint32_t keep0 = dead0 ? 0u : ~63u;
+    const uint32_t keep1 = dead1 ? 0u : ~63u;
+    const uint32_t put0 = (dead0 ? neg_hi : 0u) | r0;
+    const uint32_t put1 = (dead1 ? neg_hi : 0u) | r1;
+    float* buf = red + (wg * 2 + (iter & 1)) * 4 * B;
+    reduce_tile<0>(acc, buf + warp * B, keep0, put0, keep1, put1, lane);
+    if constexpr (NT == 2)
+      reduce_tile<1>(acc, buf + warp * B + 128, keep0, put0, keep1, put1,
+                     lane);
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    float* dst = out + static_cast<long long>(bucket) * B + NT * t;
+    if constexpr (NT == 2) {
+      float2 v = *reinterpret_cast<const float2*>(buf + 2 * t);
+#pragma unroll
+      for (int w = 1; w < 4; ++w) {
+        const float2 o = *reinterpret_cast<const float2*>(buf + w * B + 2 * t);
+        v.x = fmaxf(v.x, o.x);
+        v.y = fmaxf(v.y, o.y);
+      }
+      *reinterpret_cast<float2*>(dst) =
+          make_float2(flush_denormal(v.x), flush_denormal(v.y));
+    } else {
+      float v = buf[t];
+#pragma unroll
+      for (int w = 1; w < 4; ++w) v = fmaxf(v, buf[w * B + t]);
+      *dst = flush_denormal(v);
+    }
+    // buf is written again two buckets later, after the next bar.sync,
+    // which every warp reaches only once it has read this one.
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 row-major [rows, d] matrix, read in boxes of 64 columns x
+// box_rows rows with the 128-byte swizzle.
+bool encode(CUtensorMap* map, const void* ptr, long long rows, int d,
+            int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
+  const cuuint32_t box[2] = {KCHUNK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The shared-memory opt-in and the SM count, once per device and
+// instantiation.
+struct Ready {
+  bool done;
+  int sms;
+};
+std::mutex ready_mu;
+Ready ready[MAX_DEVICES][4];
+
+template <int NT, bool RESIDENT>
+int launch(const CUtensorMap& rows_map, const CUtensorMap& queries_map,
+           float* out, int n_buckets, int n_valid, int k_chunks,
+           const Plan& plan, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  int sms = 0;
+  {
+    std::lock_guard<std::mutex> lock(ready_mu);
+    Ready& r = ready[dev][(NT - 1) * 2 + (RESIDENT ? 1 : 0)];
+    if (!r.done) {
+      err = cudaFuncSetAttribute(bucket_scores_kernel<NT, RESIDENT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SMEM_LIMIT);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&r.sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      r.done = true;
+    }
+    sms = r.sms;
+  }
+  const int grid = n_buckets < sms ? n_buckets : sms;
+  bucket_scores_kernel<NT, RESIDENT><<<grid, THREADS, plan.smem_bytes,
+                                       stream>>>(
+      rows_map, queries_map, out, n_buckets, n_valid, k_chunks, plan.depth,
+      plan.stage_bytes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// xs [n, d] bf16 row-major, qs [b, d] bf16 row-major, out [n / 64, b] f32.
-// n % 128 == 0, d % 64 == 0, b % 128 == 0, 16-byte aligned pointers: the
-// Python wrapper checks all of it.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it does not synchronise.
+// xs [n, d] bf16 row-major, qs [b, d] bf16 row-major, out [n / 64, b] f32,
+// with n % 64 == 0 and n < 2^31, d % 64 == 0, b in {128, 256} and
+// 16-byte aligned pointers (the Python wrapper checks all of it).
+// Launches on `stream` and returns 0 on success, a cudaError_t, or -1 when
+// libcuda offers no cuTensorMapEncodeTiled, -2 when it refuses a
+// tensor map, -3 when the shapes are not taken.  It does not synchronise.
 extern "C" int hx_bucket_scores(const void* xs, const void* qs, void* out,
                                 long long n, int d, int b, int n_valid,
                                 void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      bucket_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(n / BM));
-  bucket_scores_kernel<<<grid, THREADS, SMEM_BYTES,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(xs),
-      static_cast<const __nv_bfloat16*>(qs), static_cast<float*>(out), d, b,
-      n_valid);
-  return static_cast<int>(cudaGetLastError());
+  if (n <= 0 || n % BUCKET || n >= (1LL << 31) || d <= 0 || d % KCHUNK ||
+      (b != 128 && b != 256))
+    return -3;
+  const Plan plan = make_plan(d, b);
+  if (plan.depth < 2) return -3;
+  if (!encode_tiled()) return -1;
+  CUtensorMap rows_map, queries_map;
+  if (!encode(&rows_map, xs, n, d, BUCKET) ||
+      !encode(&queries_map, qs, b, d, b))
+    return -2;
+  const int n_buckets = static_cast<int>(n / BUCKET);
+  float* o = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int k_chunks = d / KCHUNK;
+  if (b == 256)
+    return plan.resident
+               ? launch<2, true>(rows_map, queries_map, o, n_buckets, n_valid,
+                                 k_chunks, plan, s)
+               : launch<2, false>(rows_map, queries_map, o, n_buckets,
+                                  n_valid, k_chunks, plan, s);
+  return plan.resident
+             ? launch<1, true>(rows_map, queries_map, o, n_buckets, n_valid,
+                               k_chunks, plan, s)
+             : launch<1, false>(rows_map, queries_map, o, n_buckets, n_valid,
+                                k_chunks, plan, s);
 }

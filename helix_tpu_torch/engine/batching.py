@@ -13,10 +13,10 @@ partition, and runs one stacked search per group.  Callers block on an
 event and receive their slice.  Window latency is bounded (default 2 ms)
 and single-caller workloads pay at most one window.
 
-Port copy of ``helix_tpu/engine/batching.py`` for ``helix_tpu_torch``: the
-imports of ``helix_tpu``'s framework-free modules (wire, dsl, native,
-telemetry, fastjson) are absolute, so importing this module never loads
-JAX.  ``tests/test_torch_engine_copy.py`` holds the code equal to the
+Port copy of ``helix_tpu/engine/batching.py`` for ``helix_tpu_torch``: it
+imports the port's own copies of the framework-free modules (wire, dsl,
+native, telemetry, fastjson), so importing this module loads nothing of
+the JAX package.  ``tests/test_torch_engine_copy.py`` holds the code equal to the
 reference's except for the functions listed here.
 
 Differs from the reference in: nothing.

@@ -37,9 +37,9 @@ from typing import Any
 
 import torch
 
-from helix_tpu import wire
-from helix_tpu.telemetry import NullTelemetry, Telemetry
-from helix_tpu.dsl import load_query_bundle
+from .. import wire
+from ..telemetry import NullTelemetry, Telemetry
+from ..dsl import load_query_bundle
 from .errors import EngineError, QueryError, WriteError
 from .exec import Executor
 from .rwlock import RWLock

@@ -28,10 +28,10 @@ these define this rebuild's contract):
   overwrite earlier variables of the same name.
 - ``Group`` keys are the property's plain-JSON rendering as a string.
 
-Port copy of ``helix_tpu/engine/exec.py`` for ``helix_tpu_torch``: the
-imports of ``helix_tpu``'s framework-free modules (wire, dsl, native,
-telemetry, fastjson) are absolute, so importing this module never loads
-JAX.  ``tests/test_torch_engine_copy.py`` holds the code equal to the
+Port copy of ``helix_tpu/engine/exec.py`` for ``helix_tpu_torch``: it
+imports the port's own copies of the framework-free modules (wire, dsl,
+native, telemetry, fastjson), so importing this module loads nothing of
+the JAX package.  ``tests/test_torch_engine_copy.py`` holds the code equal to the
 reference's except for the functions listed here.
 
 Differs from the reference in:
@@ -62,8 +62,8 @@ import numpy as np
 
 from array import array as _pyarray
 
-from helix_tpu import wire
-from helix_tpu.dsl import DateTime, PropertyValue, _require_finite
+from .. import wire
+from ..dsl import DateTime, PropertyValue, _require_finite
 from . import values as V
 from .errors import ParamError, QueryError
 from .expr import (
@@ -923,7 +923,7 @@ class Executor:
         # paths compute identical set-semantics masks, so the router
         # times the one it runs and converges on the cheaper.
         try:
-            from helix_tpu.native import bfs_khop
+            from ..native import bfs_khop
         except Exception:
             bfs_khop = None
 

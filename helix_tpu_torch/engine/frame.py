@@ -14,10 +14,10 @@ ids, edge ids, or projected rows) with row-aligned metadata columns:
 Every shaping operation goes through :meth:`take` (subset/reorder) or
 :meth:`expand` (fan-out via a src-row map), which keep all columns aligned.
 
-Port copy of ``helix_tpu/engine/frame.py`` for ``helix_tpu_torch``: the
-imports of ``helix_tpu``'s framework-free modules (wire, dsl, native,
-telemetry, fastjson) are absolute, so importing this module never loads
-JAX.  ``tests/test_torch_engine_copy.py`` holds the code equal to the
+Port copy of ``helix_tpu/engine/frame.py`` for ``helix_tpu_torch``: it
+imports the port's own copies of the framework-free modules (wire, dsl,
+native, telemetry, fastjson), so importing this module loads nothing of
+the JAX package.  ``tests/test_torch_engine_copy.py`` holds the code equal to the
 reference's except for the functions listed here.
 
 Differs from the reference in: nothing.

@@ -17,10 +17,10 @@ re-executes the primary's record stream in order.
   records under the engine's writer lock; its gateway rejects client
   writes with a pointer to the primary.
 
-Port copy of ``helix_tpu/engine/replication.py`` for ``helix_tpu_torch``: the
-imports of ``helix_tpu``'s framework-free modules (wire, dsl, native,
-telemetry, fastjson) are absolute, so importing this module never loads
-JAX.  ``tests/test_torch_engine_copy.py`` holds the code equal to the
+Port copy of ``helix_tpu/engine/replication.py`` for ``helix_tpu_torch``: it
+imports the port's own copies of the framework-free modules (wire, dsl,
+native, telemetry, fastjson), so importing this module loads nothing of
+the JAX package.  ``tests/test_torch_engine_copy.py`` holds the code equal to the
 reference's except for the functions listed here.
 
 Differs from the reference in:
@@ -189,7 +189,7 @@ class Follower:
             # native codec with the numeric-array fast path: bulk
             # ingest records are multi-MB vector bodies, and the
             # follower re-parses every one the primary accepted
-            from helix_tpu import fastjson
+            from .. import fastjson
 
             return fastjson.loads(resp.read(), fast_arrays=True)
 

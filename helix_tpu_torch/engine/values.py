@@ -16,10 +16,10 @@ are the rebuild's documented contract):
 - a missing property fails every predicate except ``IsNull`` (true) and
   ``Not``-wrapped forms
 
-Port copy of ``helix_tpu/engine/values.py`` for ``helix_tpu_torch``: the
-imports of ``helix_tpu``'s framework-free modules (wire, dsl, native,
-telemetry, fastjson) are absolute, so importing this module never loads
-JAX.  ``tests/test_torch_engine_copy.py`` holds the code equal to the
+Port copy of ``helix_tpu/engine/values.py`` for ``helix_tpu_torch``: it
+imports the port's own copies of the framework-free modules (wire, dsl,
+native, telemetry, fastjson), so importing this module loads nothing of
+the JAX package.  ``tests/test_torch_engine_copy.py`` holds the code equal to the
 reference's except for the functions listed here.
 
 Differs from the reference in: nothing.
@@ -29,7 +29,7 @@ from __future__ import annotations
 
 from typing import Any
 
-from helix_tpu.dsl import millis_to_rfc3339
+from ..dsl import millis_to_rfc3339
 
 Tagged = Any  # "Null" | {tag: payload}
 
@@ -164,7 +164,7 @@ def to_plain(value: Tagged) -> Any:
 
 def from_plain(value: Any) -> Tagged:
     """Coerce plain JSON (dynamic parameters) to a tagged value."""
-    from helix_tpu.dsl import PropertyValue
+    from ..dsl import PropertyValue
 
     return PropertyValue.of(value)
 

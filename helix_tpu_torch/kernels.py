@@ -11,7 +11,13 @@ the shared header and the compile command, so an edited ``.cu`` or
 
 No ``--use_fast_math``: it flushes denormals in every float operation,
 and the bucket-scores kernel reproduces the reference's denormal rule
-explicitly instead (see ``csrc/bucket_scores.cu``).
+explicitly instead (see ``csrc/bucket_scores.cu``).  ``-Xptxas -v``
+makes ``ptxas`` report each kernel's registers, shared memory and
+spills; a build keeps that report in :data:`BUILD_LOG`.  The kernels use
+no CUTLASS header: ``bucket_scores.cu`` writes its TMA, ``mbarrier`` and
+``wgmma`` instructions as inline PTX and includes only the toolkit's
+``cuda.h`` (for the tensor-map type; libcuda's encoder is fetched with
+``cudaGetDriverEntryPoint``, not linked).
 """
 
 from __future__ import annotations
@@ -34,11 +40,13 @@ HEADERS = (_HERE / "csrc" / "int8_tile.cuh",)
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+# source name -> the compiler's output of the last build in this process
+BUILD_LOG: dict[str, str] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -87,7 +95,8 @@ def build() -> Path:
             for cmd in compiles
         ]
         outputs = [proc.communicate()[0] for proc in procs]
-        for cmd, proc, text in zip(compiles, procs, outputs):
+        for src, cmd, proc, text in zip(SOURCES, compiles, procs, outputs):
+            BUILD_LOG[src.name] = text
             if proc.returncode != 0:
                 raise KernelBuildError(
                     f"kernel build failed: {' '.join(cmd)}\n{text}"

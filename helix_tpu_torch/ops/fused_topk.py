@@ -44,20 +44,40 @@ BUCKET = 64
 # would manufacture NaNs.
 NEG_SENTINEL = -3.0e38
 
-# Queries per kernel call: padded to multiples of 128 (the kernel's
-# query tile), at most 256 per call.
+# Queries per kernel call: padded to 128 or 256 (one or two of the
+# kernels' 128-query tiles), at most 256 per call.
 MIN_QUERY_BLOCK = 128
 MAX_QUERY_BLOCK = 256
 
-# What the Hopper kernels take (csrc/bucket_scores.cu, and the int8 and
-# int4 kernels through csrc/int8_tile.cuh): rows in 128-row blocks (TILE
-# padding guarantees it), queries in 128-query tiles, and the feature dim
-# (packed bytes for int4) in 64-column shared-memory stages.  Shared
-# memory does not grow with D, so unlike the TPU's VMEM tile budget there
-# is no upper bound on the width.
+# What the int8 and int4 Hopper kernels take (through csrc/int8_tile.cuh):
+# rows in 128-row blocks (TILE padding guarantees it), queries in
+# 128-query tiles, and the feature dim (packed bytes for int4) in
+# 64-column shared-memory stages.  Shared memory does not grow with D, so
+# unlike the TPU's VMEM tile budget there is no upper bound on the width.
 KERNEL_ROWS = 128
 KERNEL_QUERIES = 128
 KERNEL_DEPTH = 64
+
+# What csrc/bucket_scores.cu takes: whole 64-row buckets, the feature dim
+# in KERNEL_DEPTH-column chunks (one 128-byte swizzle row of bf16), and B
+# of 128 or 256 (the N of its m64n128 / m64n256 tensor-core product;
+# fused_topk pads every query chunk to one of the two).  Queries that do
+# not fit in shared memory beside the rings stream through them, so there
+# is no width cap either.
+BUCKET_KERNEL_QUERIES = (MIN_QUERY_BLOCK, MAX_QUERY_BLOCK)
+
+
+def bucket_kernel_refusal(n: int, d: int, b: int) -> str | None:
+    """Why ``csrc/bucket_scores.cu`` cannot take ``xs [n, d]`` and
+    ``qs [b, d]``, or None when it can."""
+    if n <= 0 or n % BUCKET or n >= 1 << 31:
+        return f"N={n} is not a positive multiple of {BUCKET} below 2^31"
+    if d <= 0 or d % KERNEL_DEPTH:
+        return f"D={d} is not a positive multiple of {KERNEL_DEPTH}"
+    if b not in BUCKET_KERNEL_QUERIES:
+        return f"B={b} is not one of {BUCKET_KERNEL_QUERIES}"
+    return None
+
 
 _EXP_MASK = 0x7F800000
 _SIGN_BIT = -(1 << 31)  # 0x80000000 as int32
@@ -113,8 +133,19 @@ def bucket_scores(
 
     CUDA tensors launch ``csrc/bucket_scores.cu`` on the current stream
     and count the launch in ``bucket_scores.launches``; CPU tensors run
-    :func:`bucket_scores_reference`.  Anything the kernel does not take
-    raises."""
+    :func:`bucket_scores_reference`.  Shapes the kernel does not take
+    (:func:`bucket_kernel_refusal`) raise on either device, and so does
+    anything else the kernel does not take."""
+    if xs16.dim() != 2 or qs16.dim() != 2 or xs16.shape[1] != qs16.shape[1]:
+        raise ValueError(
+            f"bucket_scores shapes: xs [N, D] and qs [B, D], got "
+            f"{tuple(xs16.shape)} and {tuple(qs16.shape)}"
+        )
+    n, d = xs16.shape
+    b = qs16.shape[0]
+    refusal = bucket_kernel_refusal(n, d, b)
+    if refusal is not None:
+        raise ValueError(f"bucket_scores: {refusal}")
     if xs16.device.type == "cpu" and qs16.device.type == "cpu":
         return bucket_scores_reference(xs16, qs16, n_valid)
     if xs16.device.type != "cuda" or qs16.device != xs16.device:
@@ -127,22 +158,6 @@ def bucket_scores(
             f"bucket_scores takes bf16 operands, got {xs16.dtype} and "
             f"{qs16.dtype}"
         )
-    if xs16.dim() != 2 or qs16.dim() != 2 or xs16.shape[1] != qs16.shape[1]:
-        raise ValueError(
-            f"bucket_scores shapes: xs [N, D] and qs [B, D], got "
-            f"{tuple(xs16.shape)} and {tuple(qs16.shape)}"
-        )
-    n, d = xs16.shape
-    b = qs16.shape[0]
-    if n == 0 or n % KERNEL_ROWS or d == 0 or d % KERNEL_DEPTH \
-            or b == 0 or b % KERNEL_QUERIES:
-        raise ValueError(
-            f"bucket_scores needs N % {KERNEL_ROWS} == 0, D % {KERNEL_DEPTH}"
-            f" == 0 and B % {KERNEL_QUERIES} == 0 (all > 0), got N={n} "
-            f"D={d} B={b}"
-        )
-    if n >= 1 << 31:
-        raise ValueError(f"bucket_scores row count {n} exceeds int32")
     if not (xs16.is_contiguous() and qs16.is_contiguous()):
         raise ValueError("bucket_scores operands must be contiguous")
     if xs16.data_ptr() % 16 or qs16.data_ptr() % 16:
@@ -158,7 +173,9 @@ def bucket_scores(
             n_valid, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"bucket_scores kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"bucket_scores kernel launch failed: code {rc} "
+                           "(a CUDA error; -1: no cuTensorMapEncodeTiled, "
+                           "-2: tensor map refused, -3: shape refused)")
     with _LAUNCH_LOCK:  # searches may run on several threads
         bucket_scores.launches += 1
     return out
@@ -227,17 +244,21 @@ def fused_topk(
 def supports_fused(n_rows_padded: int, dim_pad: int, metric: str,
                    device: torch.device, k: int | None = None) -> bool:
     """Serving-path gate: a CUDA device, cosine, fused-padded rows, a
-    width the kernel stages (``dim_pad % 128 == 0``; shared memory does
-    not grow with D, so there is no width cap), and — when ``k`` is
-    given — a bucket count that can supply k candidates (one winner per
-    64-row bucket; past that ``topk_resident`` serves the full pool
-    instead of overflow padding)."""
+    width of the reference's gate (``dim_pad % 128 == 0``; queries that
+    do not fit in shared memory stream through the kernel's rings, so
+    there is no width cap) that is not 0, fewer than 2^31 rows (the
+    kernel's last limit, :func:`bucket_kernel_refusal`), and —
+    when ``k`` is given — a bucket count that can supply k candidates
+    (one winner per 64-row bucket; past that ``topk_resident`` serves
+    the full pool instead of overflow padding)."""
     return (
         torch.device(device).type == "cuda"
         and metric == "cosine"
         and n_rows_padded % TILE == 0
         and n_rows_padded >= TILE
+        and dim_pad > 0
         and dim_pad % 128 == 0
+        and n_rows_padded < 1 << 31
         and (k is None or k <= n_rows_padded // BUCKET)
     )
 

@@ -6,7 +6,7 @@ the cell-sorted corpus in host memory and only the coarse centroids on
 the device.  A search probes the ``nprobe`` nearest cells per query with
 one device matmul, then scores either the union of the probed cells on
 the device (streamed through pinned memory in bounded chunks) or each
-query's own cells on the host (``helix_tpu.native.rerank``), as the
+query's own cells on the host (``helix_tpu_torch.native.rerank``), as the
 measured-cost :class:`ProbeRouter` decides.  :class:`IVFIndex` is the
 device-resident variant.
 
@@ -343,7 +343,7 @@ class HostIVFIndex:
       classical IVF at the same nprobe.
     - **probed re-rank (host)**: classical IVF — each query scores only
       its own probed cells' rows, through the native row-sorted re-rank
-      kernel (``helix_tpu.native.rerank``), with zero H2D.
+      kernel (``helix_tpu_torch.native.rerank``), with zero H2D.
 
     Build scales past device memory too: k-means fits on a
     device-resident SAMPLE (``sample_cap`` rows), then assignment
@@ -493,7 +493,7 @@ class HostIVFIndex:
     ) -> tuple[np.ndarray, np.ndarray]:
         """Classical per-query probed IVF through the native row-sorted
         re-rank kernel: zero H2D, FLOPs bounded by the probe lists."""
-        from helix_tpu.native import rerank as native_rerank
+        from ..native import rerank as native_rerank
 
         b = len(queries)
         kc = max(1, int(q_counts.max()))

@@ -310,7 +310,7 @@ class QuantizedResident:
                 xs16, sq16, qs_dev, cand, live, n, k=k, metric=metric,
             )
             return dists.cpu().numpy(), pos.cpu().numpy().astype(np.int64)
-        from helix_tpu.native import rerank as native_rerank
+        from ..native import rerank as native_rerank
 
         cand = cand.cpu().numpy().astype(np.int64)
         cand = np.where(

@@ -304,7 +304,7 @@ class Int4Resident:
         """Coarse int4 top-k + exact f32 host re-rank over a pool of
         ``recall_safe_pool_int4`` candidates (an explicit floor wins when
         wider)."""
-        from helix_tpu.native import rerank as native_rerank
+        from ..native import rerank as native_rerank
 
         n = matrix.n
         packed, scales, sq_dev, bsc, perm = self.arrays(matrix)

@@ -1,12 +1,18 @@
 """Drift guard: the port's copied host modules stay the reference's code.
 
-``helix_tpu_torch/engine/*.py`` are copies of ``helix_tpu/engine/*.py``
-whose imports are made absolute.  Each copy's module docstring lists,
-after "Differs from the reference in:", the functions (``Class.method``
-or module-level names) it changes, adds or drops.  Everything else must
-equal the reference once imports are resolved to absolute module names
+``helix_tpu_torch/engine/*.py`` are copies of ``helix_tpu/engine/*.py``,
+and ``helix_tpu_torch/{wire,telemetry,fastjson}.py`` and
+``helix_tpu_torch/native/__init__.py`` copies of the same files of
+``helix_tpu``.  Each copy's module docstring lists, after "Differs from
+the reference in:", the functions (``Class.method`` or module-level
+names) it changes, adds or drops.  Everything else must equal the
+reference once imports are resolved to absolute module names
 (``helix_tpu_torch`` read as ``helix_tpu``), so a later fix to the
-reference cannot silently miss the port.
+reference cannot silently miss the port.  ``helix_tpu_torch/dsl.py``
+copies a subset of ``helix_tpu/dsl.py``: each of its statements must
+equal one of the reference's, in the reference's order.  The C++
+sources under ``helix_tpu_torch/native/`` equal the reference's byte
+for byte.  No module of the port imports anything of ``helix_tpu``.
 """
 
 import ast
@@ -106,24 +112,100 @@ def _normalised(path: Path, package: str, drop: set[str]) -> list[str]:
     return [ast.dump(stmt) for stmt in tree.body]
 
 
-@pytest.mark.parametrize("module", MODULES)
-def test_copy_matches_reference(module):
-    ref_path = ROOT / "helix_tpu" / "engine" / f"{module}.py"
-    port_path = ROOT / "helix_tpu_torch" / "engine" / f"{module}.py"
+def _check_copy(name: str, ref_path: Path, port_path: Path, ref_package: str,
+                port_package: str) -> None:
     port_tree = ast.parse(port_path.read_text())
     drop = _listed(ast.get_docstring(port_tree) or "")
     ref_defs = _definitions(ast.parse(ref_path.read_text()))
     port_defs = _definitions(port_tree)
     stale = {name for name in drop if name not in ref_defs | port_defs}
     assert not stale, f"listed but defined in neither module: {stale}"
-    ref = _normalised(ref_path, "helix_tpu.engine", drop)
-    port = _normalised(port_path, "helix_tpu_torch.engine", drop)
+    ref = _normalised(ref_path, ref_package, drop)
+    port = _normalised(port_path, port_package, drop)
     assert len(ref) == len(port), (
-        f"{module}: {len(ref)} top-level statements in the reference, "
+        f"{name}: {len(ref)} top-level statements in the reference, "
         f"{len(port)} in the port outside the listed functions"
     )
     for i, (a, b) in enumerate(zip(ref, port)):
-        assert a == b, f"{module}: top-level statement {i} drifted:\n{a}\n{b}"
+        assert a == b, f"{name}: top-level statement {i} drifted:\n{a}\n{b}"
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_copy_matches_reference(module):
+    _check_copy(module, ROOT / "helix_tpu" / "engine" / f"{module}.py",
+                ROOT / "helix_tpu_torch" / "engine" / f"{module}.py",
+                "helix_tpu.engine", "helix_tpu_torch.engine")
+
+
+# The framework-free layers: (path under the package, its package).
+HOST_MODULES = {
+    "wire": ("wire.py", ""),
+    "telemetry": ("telemetry.py", ""),
+    "fastjson": ("fastjson.py", ""),
+    "native": ("native/__init__.py", ".native"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(HOST_MODULES))
+def test_host_module_copy_matches_reference(module):
+    path, sub = HOST_MODULES[module]
+    _check_copy(module, ROOT / "helix_tpu" / path,
+                ROOT / "helix_tpu_torch" / path, "helix_tpu" + sub,
+                "helix_tpu_torch" + sub)
+
+
+def test_dsl_subset_matches_reference():
+    ref = _normalised(ROOT / "helix_tpu" / "dsl.py", "helix_tpu", set())
+    port = _normalised(ROOT / "helix_tpu_torch" / "dsl.py", "helix_tpu_torch",
+                       set())
+    at = 0
+    for i, stmt in enumerate(port):
+        assert stmt in ref[at:], (
+            f"dsl: statement {i} of the port is not the reference's (or is "
+            f"out of its order):\n{stmt}")
+        at = ref.index(stmt, at) + 1
+    names = _definitions(ast.parse(
+        (ROOT / "helix_tpu_torch" / "dsl.py").read_text()))
+    used = {"_require_finite", "DateTime", "millis_to_rfc3339",
+            "PropertyValue", "load_query_bundle"}
+    assert used <= names, f"dsl: the port's engine needs {used - names}"
+
+
+NATIVE_SOURCES = ["rerank.cpp", "bfs.cpp", "hxjson.cpp", "fastdouble.h",
+                  "fastdouble_pow5.h"]
+
+
+@pytest.mark.parametrize("source", NATIVE_SOURCES)
+def test_native_source_matches_reference(source):
+    ref = (ROOT / "helix_tpu" / "native" / source).read_bytes()
+    port = (ROOT / "helix_tpu_torch" / "native" / source).read_bytes()
+    assert port == ref, f"helix_tpu_torch/native/{source} drifted"
+
+
+def _imports(path: Path, package: str) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom):
+            names.append(_absolute(node, package))
+        elif isinstance(node, ast.Import):
+            names.extend(alias.name for alias in node.names)
+    return names
+
+
+PORT_FILES = sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "helix_tpu_torch").rglob("*.py")
+) + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_never_imports_the_reference_package(path):
+    parts = Path(path).with_suffix("").parts
+    package = ".".join(parts if parts[-1] == "__init__" else parts[:-1])
+    package = package.removesuffix(".__init__")
+    for name in _imports(ROOT / path, package):
+        assert not (name in ("jax", "helix_tpu")
+                    or name.startswith(("jax.", "helix_tpu."))), \
+            f"{path} imports {name}"
 
 
 def test_copies_never_import_the_reference_engine_or_jax():
@@ -138,6 +220,6 @@ def test_copies_never_import_the_reference_engine_or_jax():
                 name = node.names[0].name
             else:
                 continue
-            assert not name.startswith(("jax", "helix_tpu.engine",
-                                        "helix_tpu.ops", "helix_tpu.parallel")), \
+            assert not (name in ("jax", "helix_tpu")
+                        or name.startswith(("jax.", "helix_tpu."))), \
                 f"{module} imports {name}"

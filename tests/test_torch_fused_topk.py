@@ -240,19 +240,74 @@ def test_constants_keep_the_reference_values():
     )
 
 
+@pytest.mark.parametrize("n,d,b", [
+    (8192, 128, 64),        # B below the kernel's 128-query tile
+    (8192, 128, 192),       # B between the two tiles
+    (8192, 128, 384),       # B past the 256 the kernel keeps in registers
+    (8192, 96, 128),        # D not a whole 64-column chunk
+    (8192, 0, 128),
+    (8192 + 32, 128, 128),  # a part bucket
+    (0, 128, 128),
+])
+def test_bucket_scores_refuses_shapes_the_kernel_does_not_take(n, d, b):
+    """The wrapper holds CPU tensors to the kernel's shapes too, and the
+    serving gate never admits a matrix the kernel would refuse."""
+    xs = torch.zeros((n, d), dtype=torch.bfloat16)
+    qs = torch.zeros((b, d), dtype=torch.bfloat16)
+    assert TF.bucket_kernel_refusal(n, d, b) is not None
+    with pytest.raises(ValueError, match="bucket_scores"):
+        TF.bucket_scores(xs, qs, n)
+    cuda = torch.device("cuda")
+    if b in TF.BUCKET_KERNEL_QUERIES:
+        assert not TF.supports_fused(n, d, "cosine", cuda)
+
+
+def test_supports_fused_admits_only_shapes_the_kernel_takes():
+    cuda = torch.device("cuda")
+    for n in (TF.TILE, 3 * TF.TILE, 1 << 31):
+        for d in range(64, 2049, 64):
+            gate = TF.supports_fused(n, d, "cosine", cuda)
+            takes = all(TF.bucket_kernel_refusal(n, d, b) is None
+                        for b in TF.BUCKET_KERNEL_QUERIES)
+            assert not gate or takes, (n, d)
+            assert gate == (takes and d % 128 == 0), (n, d)
+    # both query blocks fused_topk pads to, at widths either side of the
+    # ones whose queries fit in shared memory, run (here: the plain version)
+    xs, qs = make_data(128, 1024, 256, seed=6)
+    for b in TF.BUCKET_KERNEL_QUERIES:
+        got = port_bucket_scores(xs, qs[:b], 100)
+        assert got.shape == (2, b)
+
+
+# (rows, width, queries, rows live): the main path's D=128 at both query
+# blocks, a width whose queries fit in shared memory (D=256), two whose
+# queries stream through the ring (D=768 at B=256, D=1280 at B=128), and
+# row counts whose bucket count is no multiple of the card's 132 SMs.
+CARD_SHAPES = [
+    (3 * 8192, 256, 256, 3 * 8192 - 77),
+    (3 * 8192, 128, 256, 3 * 8192 - 4000),
+    (2 * 8192, 128, 128, 2 * 8192 - 33),
+    (8192, 768, 256, 8192 - 100),
+    (8192, 1280, 128, 5000),
+]
+
+
 @pytest.mark.cuda
 def test_bucket_scores_kernel_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
     dev = torch.device("cuda")
-    xs, qs = make_data(3 * TF.TILE, 256, 256, seed=5)
-    x16 = torch.from_numpy(xs).to(dev, torch.bfloat16)
-    q16 = torch.from_numpy(qs).to(dev, torch.bfloat16)
-    n_valid = 3 * TF.TILE - 77
-    before = TF.bucket_scores.launches
-    got = TF.bucket_scores(x16, q16, n_valid).cpu().numpy()
-    assert TF.bucket_scores.launches == before + 1
-    want = TF.bucket_scores_reference(x16, q16, n_valid).cpu().numpy()
-    assert_packed_close(got, want, masked_scores(xs, qs, n_valid), 1e-5)
+    for seed, (n, d, b, n_valid) in enumerate(CARD_SHAPES):
+        xs, qs = make_data(n, d, b, seed=5 + seed)
+        x16 = torch.from_numpy(xs).to(dev, torch.bfloat16)
+        q16 = torch.from_numpy(qs).to(dev, torch.bfloat16)
+        before = TF.bucket_scores.launches
+        got = TF.bucket_scores(x16, q16, n_valid).cpu().numpy()
+        assert TF.bucket_scores.launches == before + 1
+        want = TF.bucket_scores_reference(x16, q16, n_valid).cpu().numpy()
+        assert_packed_close(got, want, masked_scores(xs, qs, n_valid), 1e-5)
+        # the bucket that holds n_valid is part live, part padding
+        live = n_valid % 64
+        assert live == 0 or got[n_valid // 64].min() > JF.NEG_SENTINEL / 2
     with pytest.raises(ValueError):
         TF.bucket_scores(x16, q16[:100], n_valid)

@@ -1,12 +1,15 @@
-"""The port runs where JAX is absent (the GPU machine has none).
+"""The port runs where JAX is absent (the GPU machine has none), and
+loads nothing of the JAX package.
 
 A subprocess blocks ``jax`` in ``sys.modules`` before anything else is
 imported, then imports every module of ``helix_tpu_torch`` (and
 ``chip_smoke``) and runs a small engine write and read on the CPU, then
 the same under device-memory budgets that put the index on the int8
-rung (its host re-rank is ``helix_tpu.native``) and on the host-IVF
-rung, then a traversal on the device path and a BM25 search on device
-postings.
+rung (its host re-rank is the port's ``native``) and on the host-IVF
+rung, then a traversal on the device path, a BM25 search on device
+postings and a parse through the port's ``fastjson``.  At the end no
+``helix_tpu`` module (the package or any of its submodules) may be in
+``sys.modules``.
 """
 
 import subprocess
@@ -22,6 +25,7 @@ for name in [m for m in sys.modules if m == "jax" or m.startswith("jax.")]:
 sys.modules["jax"] = None
 
 import importlib
+import importlib.util
 import pkgutil
 
 import numpy as np
@@ -31,7 +35,9 @@ torch.set_num_threads(2)
 import helix_tpu_torch
 
 for info in pkgutil.walk_packages(helix_tpu_torch.__path__, "helix_tpu_torch."):
-    importlib.import_module(info.name)
+    # the Python modules; native/ also holds its g++ build outputs (*.so)
+    if importlib.util.find_spec(info.name).origin.endswith(".py"):
+        importlib.import_module(info.name)
 import chip_smoke  # noqa: F401
 
 from helix_tpu_torch.engine import Engine
@@ -108,10 +114,16 @@ out = engine.execute(request("read", [{"TextSearchNodes": {
     "k": {"Expr": {"Param": "k"}}}}, {"ValueMap": ["$id", "x"]}],
     {"q": "node 2", "k": 2}, {"q": "String", "k": "I64"}, returns=["r"]))
 assert out["r"][0]["x"] == 2 and part._device[1] is not None, out
+from helix_tpu_torch import fastjson
+
+parsed = fastjson.loads(b'{"v": [' + b", ".join([b"0.5"] * 40) + b"]}",
+                        fast_arrays=True)
+assert list(parsed["v"]) == [0.5] * 40, parsed
 assert sys.modules["jax"] is None
 assert not [m for m in sys.modules if m.startswith("jax.")]
-assert not [m for m in sys.modules if m.startswith("helix_tpu.engine")]
-assert not [m for m in sys.modules if m.startswith("helix_tpu.ops")]
+loaded = [m for m in sys.modules
+          if m == "helix_tpu" or m.startswith("helix_tpu.")]
+assert not loaded, loaded
 print("NOJAX-OK")
 """
 
