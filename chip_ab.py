@@ -1,4 +1,5 @@
-"""Time the exact rung of two checkouts of the port in turns on one GPU.
+"""Time the exact and int8 rungs and the three kernels of two checkouts of
+the port in turns on one GPU.
 
     python3 chip_ab.py PARENT_ROOT CHANGE_ROOT [ROUNDS]
 
@@ -15,7 +16,14 @@ copy of its answer), kernel 1 alone at B=256 and B=128 (CUDA events over
 batches under ``torch.profiler``: their device busy time (the union of
 the kernel and copy intervals) and their wall time, whose ratio gives
 the device's idle share.  It checks recall@10 of the first batch against
-a float32 numpy oracle.  The runs go parent, change, change, parent,
+a float32 numpy oracle.  Then kernels 2 and 3 alone on the same rows
+quantized by the checkout's own ``QuantizedResident`` / ``Int4Resident``
+(CUDA events as kernel 1, B=256 and B=128), and the int8 rung: a
+``QuantizedResident.search`` with ``rerank_device=True`` over the first
+500,000 rows (the f16 device re-rank; k=10, 256 queries): the median wall
+time of 16 batches, recall@10 of the first against the oracle (>= 0.98),
+and the device busy time of 4 profiled batches.  The runs go parent,
+change, change, parent,
 ROUNDS times (default 1), each printing one JSON line; the last line is
 a summary with the median of each side's runs, the number of pairs
 (parent and change runs next to each other) the change won on each
@@ -34,6 +42,7 @@ import numpy as np
 
 N, DIM, K, BATCH, N_BATCHES, N_SINGLE, N_PROFILED = (
     1_000_000, 128, 10, 256, 16, 128, 4)
+N_INT8 = 500_000  # the ladder phase's int8 step in chip_smoke.py
 
 
 def child(root: str) -> None:
@@ -46,6 +55,8 @@ def child(root: str) -> None:
     from helix_tpu_torch import kernels
     from helix_tpu_torch.ops import distance as D
     from helix_tpu_torch.ops import fused_topk as F
+    from helix_tpu_torch.ops import quant as Q
+    from helix_tpu_torch.ops import quant4 as Q4
 
     kernels.load()
     data, queries = chip_smoke.make_dataset(
@@ -75,34 +86,40 @@ def child(root: str) -> None:
         first = out if first is None else first
     single = queries[BATCH * N_BATCHES:]
     single_ms = [wall(single[j:j + 1])[0] for j in range(N_SINGLE)]
-    sims = queries[:BATCH] @ data.T
-    oracle = np.argpartition(-sims, K, axis=1)[:, :K]
-    recall = float(np.mean([
-        len(set(first[1][j].tolist()) & set(oracle[j].tolist())) / K
-        for j in range(BATCH)]))
+    def recall_of(ids, rows):
+        sims = queries[:BATCH] @ rows.T
+        oracle = np.argpartition(-sims, K, axis=1)[:, :K]
+        return float(np.mean([
+            len(set(ids[j].tolist()) & set(oracle[j].tolist())) / K
+            for j in range(BATCH)]))
 
-    def kernel_ms(b):
-        xs16, _ = matrix.device_arrays()
+    recall = recall_of(first[1], data)
+
+    def kernel_ms(fn, operands, b):
+        """Median over 7 query batches of 10 back-to-back launches of
+        ``fn(*operands(q))``, q the batch's B queries on the card."""
         times = []
         for r in range(7):
-            q = torch.from_numpy(queries[r * b:(r + 1) * b]).cuda().to(
-                torch.bfloat16)
-            F.bucket_scores(xs16, q, N)
-            times.append(chip_smoke.cuda_ms(F.bucket_scores, xs16, q, N,
-                                            reps=10))
+            args = operands(torch.from_numpy(
+                queries[r * b:(r + 1) * b]).cuda())
+            fn(*args)
+            times.append(chip_smoke.cuda_ms(fn, *args, reps=10))
         return float(np.median(times))
 
-    def profiled():
+    def profiled(fn):
         """Device busy time and wall time of the same N_PROFILED B=256
-        batches under torch.profiler, per batch (busy None when the
+        calls of ``fn`` under torch.profiler, per call (busy None when the
         profiler records no device event)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        qs = queries[:BATCH]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            wall_ms = sum(wall(qs)[0] for _ in range(N_PROFILED))
+            wall_ms = 0.0
+            for _ in range(N_PROFILED):
+                t = time.perf_counter()
+                fn()
+                wall_ms += (time.perf_counter() - t) * 1e3
         spans = sorted((e.time_range.start, e.time_range.end)
                        for e in prof.events()
                        if e.device_type == DeviceType.CUDA)
@@ -114,7 +131,44 @@ def child(root: str) -> None:
         busy_ms = busy / 1e3 / N_PROFILED if spans else None
         return busy_ms, wall_ms / N_PROFILED
 
-    busy, profiled_ms = profiled()
+    busy, profiled_ms = profiled(lambda: search(queries[:BATCH]))
+    xs16, _ = matrix.device_arrays()
+    k1 = {b: kernel_ms(F.bucket_scores,
+                       lambda q: (xs16, q.to(torch.bfloat16), N), b)
+          for b in (256, 128)}
+    # Kernels 2 and 3 alone, on the rows as the rungs quantize them.
+    xs_i8, _, _ = Q.QuantizedResident().arrays(matrix)
+    packed, _, _, bsc, _ = Q4.Int4Resident().arrays(matrix)
+    k2 = {b: kernel_ms(Q.i8_bucket_scores,
+                       lambda q: (xs_i8, Q._quantize_queries(q)[0], N), b)
+          for b in (256, 128)}
+    k3 = {b: kernel_ms(Q4.i4_bucket_scores,
+                       lambda q: (packed, bsc, Q._quantize_queries(q)[0], N),
+                       b)
+          for b in (256, 128)}
+    matrix.release_device()
+    del xs_i8, packed, bsc, xs16
+
+    # The int8 rung with the f16 device re-rank over N_INT8 rows.
+    small = D.PackedMatrix(DIM, "cosine", device="cuda")
+    small.extend(data[:N_INT8])
+    quant = Q.QuantizedResident()
+    live = np.ones(N_INT8, bool)
+
+    def int8_search(qs):
+        return quant.search(small, qs, K, live, "cosine", rerank_device=True)
+
+    for _ in range(3):  # warm-up: quantization, uploads, module loads
+        int8_search(queries[:BATCH])
+    int8_ms, int8_first = [], None
+    for b in range(N_BATCHES):
+        qs = queries[b * BATCH:(b + 1) * BATCH]
+        t = time.perf_counter()
+        out = int8_search(qs)
+        int8_ms.append((time.perf_counter() - t) * 1e3)
+        int8_first = out if int8_first is None else int8_first
+    int8_busy, int8_profiled_ms = profiled(
+        lambda: int8_search(queries[:BATCH]))
     print(json.dumps({
         "batch_ms": float(np.median(batch_ms)),
         "device_busy_ms": busy,
@@ -122,8 +176,14 @@ def child(root: str) -> None:
         "idle_share": None if busy is None else 1.0 - busy / profiled_ms,
         "single_p50_ms": float(np.percentile(single_ms, 50)),
         "single_p90_ms": float(np.percentile(single_ms, 90)),
-        "kernel_b256_ms": kernel_ms(256), "kernel_b128_ms": kernel_ms(128),
+        "kernel_b256_ms": k1[256], "kernel_b128_ms": k1[128],
+        "i8_kernel_b256_ms": k2[256], "i8_kernel_b128_ms": k2[128],
+        "i4_kernel_b256_ms": k3[256], "i4_kernel_b128_ms": k3[128],
+        "int8_batch_ms": float(np.median(int8_ms)),
+        "int8_device_busy_ms": int8_busy,
+        "int8_profiled_batch_ms": int8_profiled_ms,
         "recall": recall,
+        "int8_recall": recall_of(int8_first[1], data[:N_INT8]),
     }))
 
 
@@ -153,9 +213,9 @@ def main() -> int:
             print(proc.stderr[-3000:], file=sys.stderr)
             return 1
         result = json.loads(proc.stdout.strip().splitlines()[-1])
-        if result["recall"] < 0.99:
-            print(f"chip_ab: {side} recall@10 {result['recall']}",
-                  file=sys.stderr)
+        if result["recall"] < 0.99 or result["int8_recall"] < 0.98:
+            print(f"chip_ab: {side} recall@10 {result['recall']} (exact), "
+                  f"{result['int8_recall']} (int8)", file=sys.stderr)
             return 1
         print(json.dumps({"side": side, **result}), flush=True)
         results.append(result)
@@ -171,7 +231,7 @@ def main() -> int:
              for i in range(0, len(order), 2)]
     summary["change_wins"] = {
         k: f"{sum(c[k] < p[k] for p, c in pairs)}/{len(pairs)}"
-        for k in keys if k != "recall"
+        for k in keys if not k.endswith("recall")
     }
     print(json.dumps(summary | {"card": chip_smoke.card()}), flush=True)
     return 0

@@ -8,7 +8,8 @@ the repository checkout (it imports ``helix_tpu_torch``, never JAX).
 Phases, each failing the run on a bad check:
 
 1. Build the hand-written kernels from ``helix_tpu_torch/csrc`` (printing
-   ``ptxas``' registers and spills) and the native host library
+   ``ptxas``' registers, spills and any ``C75xx`` note that ``wgmma`` was
+   serialized, for every source) and the native host library
    (``helix_tpu_torch/native``: the quantized rungs' and host IVF's
    re-rank, the traversal's native sweep).
 2. Kernel 1: ``bucket_scores`` against its plain PyTorch version at the
@@ -20,11 +21,15 @@ Phases, each failing the run on a bad check:
    rows timed with CUDA events (median over fresh query batches, the
    order rotating).
 3. Kernels 2 and 3: ``i8_bucket_scores`` and ``i4_bucket_scores`` against
-   their plain versions at the same shapes, on random unit rows
-   quantized by the port's own quantizers: the outputs must be equal bit
-   for bit, a bucket holding a zero row must flush to a zero winner, and
-   both sides and the product-only ``torch._int_mm`` (on the unpacked
-   codes for int4) are timed the same way.
+   their plain versions at the main shape on random unit rows quantized
+   by the port's own quantizers, and at B=128 and D=768 (queries streamed
+   at B=256, resident at B=128) on codes drawn on the card, with n_valid
+   in mid-bucket: the outputs must be equal bit for bit, a bucket holding
+   a zero row must flush to a zero winner, and each wrapper must raise on
+   a shape its refusal names (D=64, B=192).  Each kernel's plan is
+   printed; the kernel, its plain version and the product-only
+   ``torch._int_mm`` (on the unpacked codes for int4) are timed the same
+   way, at B=256 and B=128.
 4. Engine (exact): ``Engine(device="cuda")`` ingests 1M x 128 clustered
    vectors (``bench.py``'s generator, seed 42) through ``ForEach AddN``
    write batches, then answers single-query reads through
@@ -316,9 +321,34 @@ def check_bitwise(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max().item())
 
 
+def kernel_plan(entry: str, d: int, b: int) -> str:
+    """The plan a kernel's C entry ``entry`` picks for D=d, B=b."""
+    import ctypes
+
+    from helix_tpu_torch import kernels
+
+    plan = (ctypes.c_int * 4)()
+    rc = getattr(kernels.load(), entry)(d, b, plan)
+    check(rc == 0, f"{entry}({d}, {b}) refused the shape: {rc}")
+    resident, depth, stage, smem = plan
+    return (f"D={d} B={b}: queries {'resident' if resident else 'streamed'}"
+            f", {depth} stages of {stage} bytes per consumer, {smem} bytes "
+            "of shared memory")
+
+
+# The shapes kernels 2 and 3 are held at besides the main one (D=DIM,
+# B=BATCH): B=128 single reads, and D=768, whose queries stream through
+# the rings at B=256 and stay resident at B=128; n_valid in mid-bucket.
+QUANT_SHAPES = ((DIM, 128), (768, BATCH), (768, 128))
+QUANT_N_VALID = N_ROWS - 37
+
+
 def quant_kernel_phase(device: torch.device) -> dict:
     """Kernels 2 and 3 at the main path's shapes, on unit rows quantized
-    by the port's quantizers (int8 global scale; scale-sorted int4)."""
+    by the port's quantizers (int8 global scale; scale-sorted int4), and
+    at QUANT_SHAPES on codes drawn on the card: bit for bit against the
+    plain versions, the zero-row flush, the wrappers' refusals, and the
+    times of the kernels, their plain versions and ``torch._int_mm``."""
     from helix_tpu_torch.ops import fused_topk as F
     from helix_tpu_torch.ops import quant as Q
     from helix_tpu_torch.ops import quant4 as Q4
@@ -352,41 +382,105 @@ def quant_kernel_phase(device: torch.device) -> dict:
     packed = torch.from_numpy(packed).to(device)
     bsc = torch.from_numpy(bsc).to(device)
 
+    # The other widths: codes drawn on the card (int8 in [-127, 127],
+    # nibbles in [-7, 7], positive bucket scales).
+    gen = torch.Generator(device=device).manual_seed(12)
+    wide = {}
+    for d in sorted({d for d, _ in QUANT_SHAPES}):
+        codes = torch.randint(-127, 128, (n, d), generator=gen,
+                              device=device, dtype=torch.int8)
+        lo, hi = (torch.randint(-7, 8, (n, d // 2), generator=gen,
+                                device=device, dtype=torch.int8)
+                  for _ in range(2))
+        wide[d] = {
+            "xs": xi if d == DIM else codes,
+            "packed": packed if d == DIM else
+            ((lo & 15) | ((hi & 15) << 4)).view(torch.uint8),
+            "bsc": bsc if d == DIM else
+            torch.rand(n // F.BUCKET, generator=gen, device=device) + 0.5,
+            "q": q_i8[1] if d == DIM else torch.randint(
+                -127, 128, (BATCH, d), generator=gen, device=device,
+                dtype=torch.int8),
+        }
+        del codes, lo, hi
+
     codes4 = Q4.unpack_int4(packed)  # the library call's int8 operand
     buckets = n // F.BUCKET
-    out_bytes = buckets * BATCH * 4
     ops = 2.0 * n * DIM * BATCH
     out = {}
-    for name, kernel, plain, operands, library, in_bytes in (
+    for name, kernel, plain, entry, operands, library, in_bytes in (
         ("i8_bucket_scores", Q.i8_bucket_scores,
-         Q.i8_bucket_scores_reference, lambda q: (xi, q, N_ROWS),
+         Q.i8_bucket_scores_reference, "hx_i8_bucket_scores_plan",
+         lambda w, q, n_valid: (w["xs"], q, n_valid),
          lambda xs, q, n_valid: torch._int_mm(xs, q.t()),
-         n * DIM + BATCH * DIM),
+         lambda b: n * DIM + b * DIM),
         ("i4_bucket_scores", Q4.i4_bucket_scores,
-         Q4.i4_bucket_scores_reference, lambda q: (packed, bsc, q, N_ROWS),
+         Q4.i4_bucket_scores_reference, "hx_i4_bucket_scores_plan",
+         lambda w, q, n_valid: (w["packed"], w["bsc"], q, n_valid),
          lambda p, s, q, n_valid: torch._int_mm(codes4, q.t()),
-         n * DIM // 2 + buckets * 4 + BATCH * DIM),
+         lambda b: n * DIM // 2 + buckets * 4 + b * DIM),
     ):
-        got = kernel(*operands(q_i8[0]))
-        want = plain(*operands(q_i8[0]))
+        for d, b in ((DIM, BATCH),) + QUANT_SHAPES:
+            log(f"kernel {name} plan {kernel_plan(entry, d, b)}")
+        at_main = wide[DIM]
+        got = kernel(*operands(at_main, q_i8[0], N_ROWS))
+        want = plain(*operands(at_main, q_i8[0], N_ROWS))
         err = check_bitwise(name, got, want)
         check(int(got[0, 0].view(torch.int32)) == 0,
               f"{name}: the zero-row bucket's winner was not flushed")
         for q in q_i8[1:]:
-            err = max(err, check_bitwise(name, kernel(*operands(q)),
-                                         plain(*operands(q))))
+            err = max(err, check_bitwise(name,
+                                         kernel(*operands(at_main, q, N_ROWS)),
+                                         plain(*operands(at_main, q, N_ROWS))))
+        for d, b in QUANT_SHAPES:
+            w = wide[d]
+            args = operands(w, w["q"][:b].contiguous(), QUANT_N_VALID)
+            got = kernel(*args)
+            err = max(err, check_bitwise(f"{name} D={d} B={b}", got,
+                                         plain(*args)))
+            check(float(got[QUANT_N_VALID // F.BUCKET].min()) > -1e37,
+                  f"{name} D={d} B={b}: the part-live bucket lost its rows")
         del got, want
+        # Each wrapper raises on a shape its refusal names: D=64 (not a
+        # whole 128-column chunk) and B=192 (neither query block); a CPU
+        # rehearsal runs the plain versions, which take any shape.
+        for what, args in () if device.type != "cuda" else (
+            ("D=64", operands({"xs": xi[:, :64].contiguous(),
+                               "packed": packed[:, :32].contiguous(),
+                               "bsc": bsc}, q_i8[0][:, :64].contiguous(),
+                              N_ROWS)),
+            ("B=192", operands(at_main, q_i8[0][:192].contiguous(), N_ROWS)),
+        ):
+            try:
+                kernel(*args)
+            except ValueError as exc:
+                check(what in str(exc), f"{name}: refused {what} with {exc}")
+            else:
+                raise AssertionError(f"{name} took {what}")
         t = time_sides({"kernel": kernel, "plain": plain, "library": library},
-                       [operands(q) for q in q_i8])
-        b_ms, b_by = bound(in_bytes + out_bytes, ops, PEAK_INT8_PER_S)
+                       [operands(at_main, q, N_ROWS) for q in q_i8])
+        out_bytes = buckets * BATCH * 4
+        b_ms, b_by = bound(in_bytes(BATCH) + out_bytes, ops, PEAK_INT8_PER_S)
         log(f"kernel {name} N={n} D={DIM} B={BATCH}: {t['kernel']:.4f} ms "
             f"(plain {t['plain']:.4f} ms, torch._int_mm product only "
             f"{t['library']:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
-            f"{b_ms / t['kernel']:.1%} of the bound), bitwise equal, max "
-            f"|err| {err:.3g}, zero-row bucket flushed")
+            f"{b_ms / t['kernel']:.1%} of the bound), bitwise equal at B="
+            f"{BATCH} D={DIM} and at "
+            f"{', '.join(f'B={b} D={d}' for d, b in QUANT_SHAPES)} with "
+            f"n_valid={QUANT_N_VALID}, max |err| {err:.3g}, zero-row bucket "
+            "flushed, D=64 and B=192 refused")
+        t128 = time_sides({"kernel": kernel, "library": library},
+                          [operands(at_main, q[:128].contiguous(), N_ROWS)
+                           for q in q_i8])
+        b128, _ = bound(in_bytes(128) + buckets * 128 * 4,
+                        2.0 * n * DIM * 128, PEAK_INT8_PER_S)
+        log(f"kernel {name} N={n} D={DIM} B=128: {t128['kernel']:.4f} ms "
+            f"(torch._int_mm {t128['library']:.4f} ms, bound {b128:.4f} ms: "
+            f"{b128 / t128['kernel']:.1%})")
         out[name] = {"max_abs_err": err, "ms": t["kernel"],
                      "plain_ms": t["plain"], "library_ms": t["library"],
-                     "bound_ms": b_ms, "bound_by": b_by}
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "ms_b128": t128["kernel"]}
     return out
 
 
@@ -1249,7 +1343,8 @@ def main() -> int:
         f"({kernels.library_path().name})")
     for source, text in kernels.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(key in line for key in ("registers", "spill", "C75",
+                                           "warning")):
                 log(f"ptxas {source}: {line.strip()}")
     t = time.perf_counter()
     native.load()

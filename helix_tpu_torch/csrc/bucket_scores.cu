@@ -22,6 +22,9 @@
 // built with --use_fast_math, whose flush would apply to every float
 // operation instead.
 //
+// The pipeline's pieces (inline PTX, plan, epilogue, tensor maps) live in
+// hopper.cuh, shared with the int8 and int4 kernels.
+//
 // What bounds it on an H100: at N = 1,007,616 (1M rows padded to 8192),
 // D = 128, B = 256 the kernel must read 258 MB of bf16 rows and write
 // 16 MB of winners (82 us at 3.35 TB/s) and do 66 GFLOP (67 us at 989
@@ -57,137 +60,15 @@
 //   floats per bucket are written.  No f32 score tile goes to shared
 //   memory.
 
-#include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
-#include <cuda_runtime.h>
-
-#include <cstdint>
-#include <mutex>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BUCKET = 64;
+using namespace hx;
+
 constexpr int KCHUNK = 64;  // bf16 columns in one 128-byte swizzle row
-constexpr int ROW_TILE_BYTES = BUCKET * KCHUNK * 2;  // 8 KB
-constexpr int CONSUMERS = 2;  // warpgroups
-constexpr int THREADS = 128 * (CONSUMERS + 1);  // + one producer
-constexpr int PRODUCER_REGS = 40;   // setmaxnreg: 128 x 40 + 256 x 232
-constexpr int CONSUMER_REGS = 232;  // <= 65,536 registers of the SM
-constexpr int MAX_DEPTH = 8;        // ring stages per consumer
-constexpr int MIN_RESIDENT_DEPTH = 4;
-constexpr int SMEM_LIMIT = 232448;  // the opt-in maximum of one block
-constexpr int MAX_DEVICES = 64;
-constexpr float NEG_SENTINEL = -3.0e38f;
 
-// Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
-// repeats every 8 rows of 128 bytes, and TMA and wgmma both read it from
-// the address bits): [resident queries][each consumer's ring of `depth`
-// stages][reduction buffers][mbarriers].
-struct Plan {
-  bool resident;
-  int depth;        // stages per consumer
-  int stage_bytes;
-  int query_bytes;  // resident queries, 0 when streamed
-  int smem_bytes;   // dynamic shared memory to request
-};
-
-int red_bytes(int b) { return CONSUMERS * 2 * 4 * b * 4; }
-int fixed_bytes(int b) {
-  return 1024 + red_bytes(b) + (2 * CONSUMERS * MAX_DEPTH + 1) * 8;
-}
-
-// The plan follows from the shape alone.  A consumer holds two stages at
-// once (one chunk's products in flight while the next one's are issued),
-// so a ring needs at least two.
-Plan make_plan(int d, int b) {
-  Plan p{};
-  const long long q = 2LL * b * d;
-  const long long room = SMEM_LIMIT - fixed_bytes(b);
-  p.resident = q + CONSUMERS * MIN_RESIDENT_DEPTH * ROW_TILE_BYTES <= room;
-  p.query_bytes = p.resident ? static_cast<int>(q) : 0;
-  p.stage_bytes = ROW_TILE_BYTES + (p.resident ? 0 : b * KCHUNK * 2);
-  const long long fit = (room - p.query_bytes) / (CONSUMERS * p.stage_bytes);
-  p.depth = static_cast<int>(fit < MAX_DEPTH ? fit : MAX_DEPTH);
-  p.smem_bytes = fixed_bytes(b) + p.query_bytes +
-                 CONSUMERS * p.depth * p.stage_bytes;
-  return p;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// The spin loop stays inside one asm block: a C++ loop around try_wait
-// would leave the warp divergent where the wgmma instructions that follow
-// need it converged.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One TMA tile: box {64 columns, rows} at (column c0, row c1).
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major operand in 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart (stride byte offset);
-// the leading byte offset is unused by this layout.  A K step of 16 bf16
-// (32 bytes) inside the swizzle row advances the start address.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// The accumulators are written by asynchronous products: pin them so the
-// compiler neither reads them before wgmma_wait nor moves them.
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+Plan make_bf16_plan(int d, int b) { return make_plan(2LL * b * d, b, 0); }
 
 // D[64 x 128] (+)= A[64 x 16] * B[128 x 16]^T, bf16 in, f32 sums.
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
@@ -285,57 +166,6 @@ __device__ __forceinline__ void wgmma_rows_queries(float (&d)[NT * 64],
     wgmma_m64n128k16(d, a, b, accumulate);
 }
 
-// One LOP3: the score's bits under `keep`, then the row's `put` bits.
-__device__ __forceinline__ float pack(float s, uint32_t keep, uint32_t put) {
-  return __uint_as_float((__float_as_uint(s) & keep) | put);
-}
-
-__device__ __forceinline__ float flush_denormal(float v) {
-  uint32_t bits = __float_as_uint(v);
-  if ((bits & 0x7f800000u) == 0u) bits &= 0x80000000u;
-  return __uint_as_float(bits);
-}
-
-// One half-exchange of the reduce-scatter: lanes that differ in `bit`
-// swap halves of m[0, 2h) and keep the max of the half they own in
-// m[0, h).
-template <int H>
-__device__ __forceinline__ void exchange(float (&m)[32], bool hi, int bit) {
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float send = hi ? m[i] : m[i + H];
-    const float keep = hi ? m[i + H] : m[i];
-    m[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, bit));
-  }
-}
-
-// Reduce query tile N (128 columns) of the accumulator to the max of each
-// column over this warp's 16 rows, written to buf[0, 128).  Value i of
-// the accumulator sits at row r0 + 8 * ((i >> 1) & 1) and column
-// 8 * (i >> 2) + 2 * c + (i & 1) (c = lane % 4), so tile N is values
-// [64 N, 64 N + 64); each is packed as (bits & keep) | put of its row.
-template <int N, int R>
-__device__ __forceinline__ void reduce_tile(const float (&acc)[R], float* buf,
-                                            uint32_t keep0, uint32_t put0,
-                                            uint32_t keep1, uint32_t put1,
-                                            int lane) {
-  float m[32];
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      m[2 * j + e] = fmaxf(pack(acc[64 * N + 4 * j + e], keep0, put0),
-                           pack(acc[64 * N + 4 * j + 2 + e], keep1, put1));
-  // Reduce-scatter over the lane bits 4, 3, 2 (the row groups): lane
-  // (g, c) ends with the columns 16 g + {0, 8} + 2 c + {0, 1}.
-  exchange<16>(m, lane & 16, 16);
-  exchange<8>(m, lane & 8, 8);
-  exchange<4>(m, lane & 4, 4);
-  float* col = buf + 16 * (lane / 4) + 2 * (lane % 4);
-  *reinterpret_cast<float2*>(col) = make_float2(m[0], m[1]);
-  *reinterpret_cast<float2*>(col + 8) = make_float2(m[2], m[3]);
-}
-
 // NT = B / 128 query tiles.  RESIDENT: the queries stay in shared memory
 // for the block's life; otherwise each stage carries its K-chunk of them.
 template <int NT, bool RESIDENT>
@@ -407,10 +237,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   // Consumers: warpgroup wg takes the block's buckets wg, wg + 2, ...
   // from its own ring, so it sees every round of its stages' barriers.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
-  const int warp = t / 32;
-  const int lane = t % 32;
-  const uint32_t r0 = warp * 16 + lane / 4;  // this thread's rows
-  const uint32_t r1 = r0 + 8;
   const uint32_t my_full = full + 8 * wg * MAX_DEPTH;
   const uint32_t my_empty = empty + 8 * wg * MAX_DEPTH;
   const uint32_t my_ring = ring + wg * depth * stage_bytes;
@@ -453,120 +279,20 @@ __global__ void __launch_bounds__(THREADS, 1)
     fence_acc(acc);
     mbar_arrive(my_empty + 8 * prev);
 
-    // Epilogue.  The row mask folds into the pack: a live row keeps its
-    // score's high bits (and ~63), a dead row keeps none and takes the
-    // sentinel's, so masking costs no instruction per value and no branch.
-    const int row0 = bucket * BUCKET;
-    const uint32_t neg_hi = __float_as_uint(NEG_SENTINEL) & ~63u;
-    const bool dead0 = row0 + static_cast<int>(r0) >= n_valid;
-    const bool dead1 = row0 + static_cast<int>(r1) >= n_valid;
-    const uint32_t keep0 = dead0 ? 0u : ~63u;
-    const uint32_t keep1 = dead1 ? 0u : ~63u;
-    const uint32_t put0 = (dead0 ? neg_hi : 0u) | r0;
-    const uint32_t put1 = (dead1 ? neg_hi : 0u) | r1;
     float* buf = red + (wg * 2 + (iter & 1)) * 4 * B;
-    reduce_tile<0>(acc, buf + warp * B, keep0, put0, keep1, put1, lane);
-    if constexpr (NT == 2)
-      reduce_tile<1>(acc, buf + warp * B + 128, keep0, put0, keep1, put1,
-                     lane);
-    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
-    float* dst = out + static_cast<long long>(bucket) * B + NT * t;
-    if constexpr (NT == 2) {
-      float2 v = *reinterpret_cast<const float2*>(buf + 2 * t);
-#pragma unroll
-      for (int w = 1; w < 4; ++w) {
-        const float2 o = *reinterpret_cast<const float2*>(buf + w * B + 2 * t);
-        v.x = fmaxf(v.x, o.x);
-        v.y = fmaxf(v.y, o.y);
-      }
-      *reinterpret_cast<float2*>(dst) =
-          make_float2(flush_denormal(v.x), flush_denormal(v.y));
-    } else {
-      float v = buf[t];
-#pragma unroll
-      for (int w = 1; w < 4; ++w) v = fmaxf(v, buf[w * B + t]);
-      *dst = flush_denormal(v);
-    }
-    // buf is written again two buckets later, after the next bar.sync,
-    // which every warp reaches only once it has read this one.
+    bucket_epilogue<NT>(acc, buf, out + static_cast<long long>(bucket) * B,
+                        bucket * BUCKET, n_valid, wg, t,
+                        [](float v) { return v; });
   }
 }
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 row-major [rows, d] matrix, read in boxes of 64 columns x
-// box_rows rows with the 128-byte swizzle.
-bool encode(CUtensorMap* map, const void* ptr, long long rows, int d,
-            int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {KCHUNK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The shared-memory opt-in and the SM count, once per device and
-// instantiation.
-struct Ready {
-  bool done;
-  int sms;
-};
-std::mutex ready_mu;
-Ready ready[MAX_DEVICES][4];
 
 template <int NT, bool RESIDENT>
 int launch(const CUtensorMap& rows_map, const CUtensorMap& queries_map,
            float* out, int n_buckets, int n_valid, int k_chunks,
            const Plan& plan, cudaStream_t stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
   int sms = 0;
-  {
-    std::lock_guard<std::mutex> lock(ready_mu);
-    Ready& r = ready[dev][(NT - 1) * 2 + (RESIDENT ? 1 : 0)];
-    if (!r.done) {
-      err = cudaFuncSetAttribute(bucket_scores_kernel<NT, RESIDENT>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 SMEM_LIMIT);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&r.sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      r.done = true;
-    }
-    sms = r.sms;
-  }
+  const int err = ready<bucket_scores_kernel<NT, RESIDENT>>(&sms);
+  if (err != 0) return err;
   const int grid = n_buckets < sms ? n_buckets : sms;
   bucket_scores_kernel<NT, RESIDENT><<<grid, THREADS, plan.smem_bytes,
                                        stream>>>(
@@ -589,12 +315,14 @@ extern "C" int hx_bucket_scores(const void* xs, const void* qs, void* out,
   if (n <= 0 || n % BUCKET || n >= (1LL << 31) || d <= 0 || d % KCHUNK ||
       (b != 128 && b != 256))
     return -3;
-  const Plan plan = make_plan(d, b);
+  const Plan plan = make_bf16_plan(d, b);
   if (plan.depth < 2) return -3;
   if (!encode_tiled()) return -1;
   CUtensorMap rows_map, queries_map;
-  if (!encode(&rows_map, xs, n, d, BUCKET) ||
-      !encode(&queries_map, qs, b, d, b))
+  if (!encode(&rows_map, xs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n, d,
+              KCHUNK, BUCKET, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&queries_map, qs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, d,
+              KCHUNK, b, CU_TENSOR_MAP_SWIZZLE_128B))
     return -2;
   const int n_buckets = static_cast<int>(n / BUCKET);
   float* o = static_cast<float*>(out);

@@ -12,91 +12,200 @@
 //   packed = (bits(s) & ~63) | (r & 63), denormal -> signed zero
 //   out[r / 64, j] = fmaxf over the bucket's 64 packed values
 //
-// The dots are exact integers, so the result equals the plain version
+// The dots are exact integers (|sum| <= 127 * 127 * D), converted with
+// __int2float_rn as the plain version converts them (exact up to D = 1040,
+// correctly rounded beyond), so the result equals the plain version
 // (ops/quant.py:i8_bucket_scores_reference) bit for bit, index bits
 // included.
 //
-// What bounds it on an H100: at N = 1,007,616, D = 128, B = 256 it reads
-// 129 MB of codes and does 66 G integer operations, ~510 operations per
-// byte, just under the int8 ridge (~590 at 1,979 TOP/s and 3.35 TB/s): the
-// two floors are close (~39 us of reads, ~33 us of tensor-core work), and
-// mma.sync reaches well under wgmma's peak, so at this batch it is
-// compute-heavy.  The design is the simple one (int8_tile.cuh): mma.sync
-// m16n8k32 s8 from shared memory with synchronous 16-byte staging; wgmma
-// s8 and TMA are later work.
+// What bounds it on an H100: at N = 1,007,616, D = 128, B = 256 it must
+// read 129 MB of codes and write 16 MB of winners (145 MB, 43 us at 3.35
+// TB/s) and do 66 G integer operations (33 us at 1,979 TOP/s): the two
+// floors are close, so loads, products and the epilogue have to overlap.
+// The design is kernel 1's (bucket_scores.cu, pieces in hopper.cuh):
+//
+// - Persistent grid of min(buckets, SMs) blocks walking 64-row buckets.
+// - Queries resident in shared memory (B * D bytes, 32 KB at B = 256,
+//   D = 128), loaded once per block; where they do not fit beside rings
+//   of at least 4 stages (B = 256 from D = 640), each stage carries its
+//   K-chunk of them instead.
+// - Rows through a TMA ring per consumer warpgroup: boxes of 128 int8
+//   columns (one 128-byte swizzle row) x 64 rows, 8 KB, fed by one
+//   producer thread whose warpgroup gives its registers up (setmaxnreg).
+// - wgmma m64n256k32 (B = 256) / m64n128k32 (B = 128) s8 x s8 -> s32,
+//   both operands K-major from the swizzled stages, four K steps of 32
+//   bytes per chunk; int32 sums in registers (B / 2 per thread).
+// - Epilogue in registers: __int2float_rn of each sum after the wait,
+//   the pack with the row mask folded in, the bucket max by
+//   reduce-scatter shuffles and a 4-warp merge, one flush per output.
 
-#include "int8_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace hx_int8;
+using namespace hx;
 
-constexpr size_t SMEM_BYTES = (BM + BN) * LDA + SCORE_BYTES;
+constexpr int KCHUNK = SWIZZLE_BYTES;  // int8 columns in one swizzle row
 
-__global__ void __launch_bounds__(THREADS)
-i8_bucket_scores_kernel(const int8_t* __restrict__ xs,
-                        const int8_t* __restrict__ q,
-                        float* __restrict__ out, int d, int b, int n_valid) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* xs_s = reinterpret_cast<int8_t*>(smem);
-  int8_t* qs_s = xs_s + BM * LDA;
-  int* sc = reinterpret_cast<int*>(qs_s + BN * LDA);
+Plan make_i8_plan(int d, int b) { return make_plan(1LL * b * d, b, 0); }
 
-  const long long row0 = static_cast<long long>(blockIdx.x) * BM;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WARPS_N;
-  const int wn = warp % WARPS_N;
+// NT = B / 128 query tiles.  RESIDENT: the queries stay in shared memory
+// for the block's life; otherwise each stage carries its K-chunk of them.
+template <int NT, bool RESIDENT>
+__global__ void __launch_bounds__(THREADS, 1)
+    i8_bucket_scores_kernel(const __grid_constant__ CUtensorMap rows_map,
+                            const __grid_constant__ CUtensorMap queries_map,
+                            float* __restrict__ out, int n_buckets,
+                            int n_valid, int k_chunks, int depth,
+                            int stage_bytes) {
+  constexpr int B = 128 * NT;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* base = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t q_addr = smem_u32(base);
+  const uint32_t ring = q_addr + (RESIDENT ? B * KCHUNK * k_chunks : 0);
+  float* red = reinterpret_cast<float*>(base + (ring - q_addr) +
+                                        CONSUMERS * depth * stage_bytes);
+  // Stage s of consumer c: ring + (c * depth + s) * stage_bytes, its
+  // barriers full + 8 * (c * MAX_DEPTH + s) and empty + the same.
+  const uint32_t full = smem_u32(red + CONSUMERS * 2 * 4 * B);
+  const uint32_t empty = full + 8 * CONSUMERS * MAX_DEPTH;
+  const uint32_t q_bar = empty + 8 * CONSUMERS * MAX_DEPTH;
 
-  for (int q0 = 0; q0 < b; q0 += BN) {
-    int acc[MT][NT][4];
-    zero_acc(acc);
-    for (int k0 = 0; k0 < d; k0 += KC) {
-      for (int idx = threadIdx.x; idx < BM * CHUNKS; idx += THREADS) {
-        const int r = idx / CHUNKS;
-        const int c = (idx % CHUNKS) * 16;
-        *reinterpret_cast<uint4*>(xs_s + r * LDA + c) =
-            *reinterpret_cast<const uint4*>(xs + (row0 + r) * d + k0 + c);
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < CONSUMERS; ++c)
+      for (int s = 0; s < depth; ++s) {
+        mbar_init(full + 8 * (c * MAX_DEPTH + s), 1);
+        mbar_init(empty + 8 * (c * MAX_DEPTH + s), 128);
       }
-      for (int idx = threadIdx.x; idx < BN * CHUNKS; idx += THREADS) {
-        const int r = idx / CHUNKS;
-        const int c = (idx % CHUNKS) * 16;
-        *reinterpret_cast<uint4*>(qs_s + r * LDA + c) =
-            *reinterpret_cast<const uint4*>(
-                q + static_cast<long long>(q0 + r) * d + k0 + c);
-      }
-      __syncthreads();
-      mma_chunk(acc, xs_s, qs_s, wm, wn, lane);
-      __syncthreads();
-    }
-    store_acc(acc, sc, wm, wn, lane);
-    __syncthreads();
-
-    const int lb = threadIdx.x / BN;
-    const int j = threadIdx.x % BN;
-    out[(static_cast<long long>(blockIdx.x) * 2 + lb) * b + q0 + j] =
-        bucket_max(sc, lb, j, row0, n_valid);
-    __syncthreads();  // the next query tile rewrites the score tile
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
+
+  const int grid = gridDim.x;
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  if (wg == CONSUMERS) {
+    // Producer warpgroup: one thread keeps both rings full, the block's
+    // buckets alternating between them.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (t != 0) return;
+    if (RESIDENT) {
+      mbar_expect_tx(q_bar, B * KCHUNK * k_chunks);
+      for (int k = 0; k < k_chunks; ++k)
+        tma_load(q_addr + k * B * KCHUNK, &queries_map, q_bar, k * KCHUNK,
+                 0);
+    }
+    int item = 0;
+    for (int bucket = blockIdx.x; bucket < n_buckets; bucket += grid, ++item) {
+      const int c = item % CONSUMERS;
+      uint32_t seq = static_cast<uint32_t>(item / CONSUMERS) * k_chunks;
+      for (int k = 0; k < k_chunks; ++k, ++seq) {
+        const uint32_t s = seq % depth;
+        const uint32_t round = seq / depth;
+        const uint32_t bar = 8 * (c * MAX_DEPTH + s);
+        if (round) mbar_wait(empty + bar, (round - 1) & 1);
+        const uint32_t stage = ring + (c * depth + s) * stage_bytes;
+        mbar_expect_tx(full + bar, stage_bytes);
+        tma_load(stage, &rows_map, full + bar, k * KCHUNK, bucket * BUCKET);
+        if (!RESIDENT)
+          tma_load(stage + ROW_TILE_BYTES, &queries_map, full + bar,
+                   k * KCHUNK, 0);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg takes the block's buckets wg, wg + 2, ...
+  // from its own ring, so it sees every round of its stages' barriers.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  const uint32_t my_full = full + 8 * wg * MAX_DEPTH;
+  const uint32_t my_empty = empty + 8 * wg * MAX_DEPTH;
+  const uint32_t my_ring = ring + wg * depth * stage_bytes;
+
+  int acc[NT * 64];
+#pragma unroll
+  for (int i = 0; i < NT * 64; ++i) acc[i] = 0;
+
+  if (RESIDENT) mbar_wait(q_bar, 0);
+  int iter = 0;
+  for (int bucket = blockIdx.x + wg * grid; bucket < n_buckets;
+       bucket += CONSUMERS * grid, ++iter) {
+    s8_products<NT, RESIDENT>(acc, my_full, my_empty, my_ring, q_addr,
+                              static_cast<uint32_t>(iter) * k_chunks,
+                              k_chunks, depth, stage_bytes);
+    float* buf = red + (wg * 2 + (iter & 1)) * 4 * B;
+    bucket_epilogue<NT>(acc, buf, out + static_cast<long long>(bucket) * B,
+                        bucket * BUCKET, n_valid, wg, t,
+                        [](float v) { return v; });
+  }
+}
+
+template <int NT, bool RESIDENT>
+int launch(const CUtensorMap& rows_map, const CUtensorMap& queries_map,
+           float* out, int n_buckets, int n_valid, int k_chunks,
+           const Plan& plan, cudaStream_t stream) {
+  int sms = 0;
+  const int err = ready<i8_bucket_scores_kernel<NT, RESIDENT>>(&sms);
+  if (err != 0) return err;
+  const int grid = n_buckets < sms ? n_buckets : sms;
+  i8_bucket_scores_kernel<NT, RESIDENT><<<grid, THREADS, plan.smem_bytes,
+                                          stream>>>(
+      rows_map, queries_map, out, n_buckets, n_valid, k_chunks, plan.depth,
+      plan.stage_bytes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// xs [n, d] int8 row-major, q [b, d] int8 row-major, out [n / 64, b] f32.
-// n % 128 == 0, d % 64 == 0, b % 128 == 0, 16-byte aligned pointers: the
-// Python wrapper checks all of it.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it does not synchronise.
+// The plan for d, b: {queries resident (0/1), stages per consumer, stage
+// bytes, dynamic shared memory}; returns -3 when the shapes are not taken.
+extern "C" int hx_i8_bucket_scores_plan(int d, int b, int* plan) {
+  if (d <= 0 || d % KCHUNK || (b != 128 && b != 256)) return -3;
+  const Plan p = make_i8_plan(d, b);
+  plan[0] = p.resident;
+  plan[1] = p.depth;
+  plan[2] = p.stage_bytes;
+  plan[3] = p.smem_bytes;
+  return p.depth < 2 ? -3 : 0;
+}
+
+// xs [n, d] int8 row-major, q [b, d] int8 row-major, out [n / 64, b] f32,
+// with n % 64 == 0 and n < 2^31, d % 128 == 0, b in {128, 256} and
+// 16-byte aligned pointers (the Python wrapper checks all of it).
+// Launches on `stream` and returns 0 on success, a cudaError_t, or -1 when
+// libcuda offers no cuTensorMapEncodeTiled, -2 when it refuses a tensor
+// map, -3 when the shapes are not taken.  It does not synchronise.
 extern "C" int hx_i8_bucket_scores(const void* xs, const void* q, void* out,
                                    long long n, int d, int b, int n_valid,
                                    void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      i8_bucket_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(n / BM));
-  i8_bucket_scores_kernel<<<grid, THREADS, SMEM_BYTES,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xs), static_cast<const int8_t*>(q),
-      static_cast<float*>(out), d, b, n_valid);
-  return static_cast<int>(cudaGetLastError());
+  if (n <= 0 || n % BUCKET || n >= (1LL << 31) || d <= 0 || d % KCHUNK ||
+      (b != 128 && b != 256))
+    return -3;
+  const Plan plan = make_i8_plan(d, b);
+  if (plan.depth < 2) return -3;
+  if (!encode_tiled()) return -1;
+  // Bytes are bytes: the maps copy int8 codes as UINT8.
+  CUtensorMap rows_map, queries_map;
+  if (!encode(&rows_map, xs, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, n, d, KCHUNK,
+              BUCKET, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&queries_map, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, b, d, KCHUNK,
+              b, CU_TENSOR_MAP_SWIZZLE_128B))
+    return -2;
+  const int n_buckets = static_cast<int>(n / BUCKET);
+  float* o = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int k_chunks = d / KCHUNK;
+  if (b == 256)
+    return plan.resident
+               ? launch<2, true>(rows_map, queries_map, o, n_buckets, n_valid,
+                                 k_chunks, plan, s)
+               : launch<2, false>(rows_map, queries_map, o, n_buckets,
+                                  n_valid, k_chunks, plan, s);
+  return plan.resident
+             ? launch<1, true>(rows_map, queries_map, o, n_buckets, n_valid,
+                               k_chunks, plan, s)
+             : launch<1, false>(rows_map, queries_map, o, n_buckets, n_valid,
+                                k_chunks, plan, s);
 }

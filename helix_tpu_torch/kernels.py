@@ -13,11 +13,12 @@ No ``--use_fast_math``: it flushes denormals in every float operation,
 and the bucket-scores kernel reproduces the reference's denormal rule
 explicitly instead (see ``csrc/bucket_scores.cu``).  ``-Xptxas -v``
 makes ``ptxas`` report each kernel's registers, shared memory and
-spills; a build keeps that report in :data:`BUILD_LOG`.  The kernels use
-no CUTLASS header: ``bucket_scores.cu`` writes its TMA, ``mbarrier`` and
-``wgmma`` instructions as inline PTX and includes only the toolkit's
-``cuda.h`` (for the tensor-map type; libcuda's encoder is fetched with
-``cudaGetDriverEntryPoint``, not linked).
+spills (and any ``C75xx`` note that ``wgmma`` was serialized); a build
+keeps that report in :data:`BUILD_LOG`.  The kernels use no CUTLASS
+header: ``csrc/hopper.cuh``, which all three include, writes their TMA,
+``mbarrier`` and ``wgmma`` instructions as inline PTX and includes only
+the toolkit's ``cuda.h`` (for the tensor-map type; libcuda's encoder is
+fetched with ``cudaGetDriverEntryPoint``, not linked).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ SOURCES = (
     _HERE / "csrc" / "i8_bucket_scores.cu",
     _HERE / "csrc" / "i4_bucket_scores.cu",
 )
-HEADERS = (_HERE / "csrc" / "int8_tile.cuh",)
+HEADERS = (_HERE / "csrc" / "hopper.cuh",)
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -136,6 +137,11 @@ def load() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
+        for plan in (lib.hx_i8_bucket_scores_plan,
+                     lib.hx_i4_bucket_scores_plan):
+            plan.restype = ctypes.c_int
+            plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int)]
         lib.hx_i4_bucket_scores.restype = ctypes.c_int
         lib.hx_i4_bucket_scores.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

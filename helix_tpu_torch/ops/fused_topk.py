@@ -49,34 +49,38 @@ NEG_SENTINEL = -3.0e38
 MIN_QUERY_BLOCK = 128
 MAX_QUERY_BLOCK = 256
 
-# What the int8 and int4 Hopper kernels take (through csrc/int8_tile.cuh):
-# rows in 128-row blocks (TILE padding guarantees it), queries in
-# 128-query tiles, and the feature dim (packed bytes for int4) in
-# 64-column shared-memory stages.  Shared memory does not grow with D, so
-# unlike the TPU's VMEM tile budget there is no upper bound on the width.
-KERNEL_ROWS = 128
-KERNEL_QUERIES = 128
+# What the three Hopper kernels take (csrc/hopper.cuh's pipeline): whole
+# 64-row buckets (N % 64, N < 2^31), B of 128 or 256 (the N of their
+# m64n128 / m64n256 tensor-core product; every caller pads its query
+# chunks to one of the two), and the feature dim in chunks of one 128-byte
+# swizzle row: KERNEL_DEPTH = 64 bf16 columns for csrc/bucket_scores.cu,
+# 128 int8 columns for csrc/i8_bucket_scores.cu and 128 unpacked int4
+# columns (64 packed bytes) for csrc/i4_bucket_scores.cu (their refusals
+# are ops/quant.py:i8_kernel_refusal and ops/quant4.py:i4_kernel_refusal).
+# Queries that do not fit in shared memory beside the rings stream
+# through them, so unlike the TPU's VMEM tile budget there is no width
+# cap.
 KERNEL_DEPTH = 64
-
-# What csrc/bucket_scores.cu takes: whole 64-row buckets, the feature dim
-# in KERNEL_DEPTH-column chunks (one 128-byte swizzle row of bf16), and B
-# of 128 or 256 (the N of its m64n128 / m64n256 tensor-core product;
-# fused_topk pads every query chunk to one of the two).  Queries that do
-# not fit in shared memory beside the rings stream through them, so there
-# is no width cap either.
 BUCKET_KERNEL_QUERIES = (MIN_QUERY_BLOCK, MAX_QUERY_BLOCK)
+
+
+def kernel_refusal(n: int, d: int, b: int, depth: int) -> str | None:
+    """Why a kernel of the three, whose feature-dim chunk is ``depth``
+    columns, cannot take ``xs [n, d]`` and queries ``[b, d]``, or None
+    when it can."""
+    if n <= 0 or n % BUCKET or n >= 1 << 31:
+        return f"N={n} is not a positive multiple of {BUCKET} below 2^31"
+    if d <= 0 or d % depth:
+        return f"D={d} is not a positive multiple of {depth}"
+    if b not in BUCKET_KERNEL_QUERIES:
+        return f"B={b} is not one of {BUCKET_KERNEL_QUERIES}"
+    return None
 
 
 def bucket_kernel_refusal(n: int, d: int, b: int) -> str | None:
     """Why ``csrc/bucket_scores.cu`` cannot take ``xs [n, d]`` and
     ``qs [b, d]``, or None when it can."""
-    if n <= 0 or n % BUCKET or n >= 1 << 31:
-        return f"N={n} is not a positive multiple of {BUCKET} below 2^31"
-    if d <= 0 or d % KERNEL_DEPTH:
-        return f"D={d} is not a positive multiple of {KERNEL_DEPTH}"
-    if b not in BUCKET_KERNEL_QUERIES:
-        return f"B={b} is not one of {BUCKET_KERNEL_QUERIES}"
-    return None
+    return kernel_refusal(n, d, b, KERNEL_DEPTH)
 
 
 _EXP_MASK = 0x7F800000
@@ -172,10 +176,7 @@ def bucket_scores(
             xs16.data_ptr(), qs16.data_ptr(), out.data_ptr(), n, d, b,
             n_valid, stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"bucket_scores kernel launch failed: code {rc} "
-                           "(a CUDA error; -1: no cuTensorMapEncodeTiled, "
-                           "-2: tensor map refused, -3: shape refused)")
+    check_launch("bucket_scores", rc)
     with _LAUNCH_LOCK:  # searches may run on several threads
         bucket_scores.launches += 1
     return out
@@ -183,6 +184,16 @@ def bucket_scores(
 
 bucket_scores.launches = 0
 _LAUNCH_LOCK = threading.Lock()
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise unless a kernel's C entry returned 0."""
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: code {rc} (a CUDA error; -1: no "
+            "cuTensorMapEncodeTiled, -2: tensor map refused, -3: shape "
+            "refused)"
+        )
 
 
 def fused_topk(

@@ -14,7 +14,10 @@ Two coarse paths, routed as the reference routes them
   its wrapper :func:`i8_bucket_scores` launches the hand-written Hopper
   kernel ``csrc/i8_bucket_scores.cu`` (or raises); on a CPU tensor it
   runs :func:`i8_bucket_scores_reference`, the plain version the tests
-  hold against the JAX kernel bit for bit.
+  hold against the JAX kernel bit for bit.  The kernel takes whole
+  64-row buckets (N < 2^31), D a multiple of 128 (one 128-byte swizzle
+  row of int8) and B of 128 or 256 (:func:`i8_kernel_refusal`); the
+  search routes a shape it refuses to the unfused path.
 - :func:`int8_coarse_topk`, the unfused path (l2, fewer than 8192 rows,
   or a pool wider than the bucket count).  The reference computes its
   product in XLA, outside any kernel; here it is ``torch._int_mm`` on
@@ -40,15 +43,20 @@ from .distance import _round_up, _top_k, require_fp32_matmul
 from .fused_topk import (
     _LAUNCH_LOCK,
     BUCKET,
-    KERNEL_DEPTH,
-    KERNEL_QUERIES,
-    KERNEL_ROWS,
+    BUCKET_KERNEL_QUERIES,
     MAX_QUERY_BLOCK,
     MIN_QUERY_BLOCK,
     TILE,
+    check_launch,
+    kernel_refusal,
     mask_pack_reduce,
     pad_rows_for_fused,
 )
+
+# Feature columns per chunk of csrc/i8_bucket_scores.cu and
+# csrc/i4_bucket_scores.cu: one 128-byte swizzle row of int8 (for int4,
+# 64 packed bytes unpacked).
+I8_KERNEL_DEPTH = 128
 
 
 
@@ -212,6 +220,21 @@ def use_fused(matrix) -> bool:
     )
 
 
+def fused_route(matrix, n_rows: int, d: int, k_cand: int, refusal) -> bool:
+    """Whether a quantized rung's search takes its fused kernel for
+    ``n_rows`` resident rows of width ``d``: the :func:`use_fused` gate,
+    rows padded to ``TILE``, a bucket count that supplies the pool (one
+    candidate per 64-row bucket), and a shape the kernel takes at both
+    query blocks ``fused_coarse`` pads to (``refusal(n, d, b)`` is None);
+    otherwise the unfused path serves."""
+    return (
+        use_fused(matrix)
+        and n_rows % TILE == 0
+        and k_cand <= n_rows // BUCKET
+        and all(refusal(n_rows, d, b) is None for b in BUCKET_KERNEL_QUERIES)
+    )
+
+
 class QuantizedResident:
     """Device-resident int8 copy of a packed matrix, refreshed by
     version (same scheme as PackedMatrix's bf16 cache)."""
@@ -291,13 +314,8 @@ class QuantizedResident:
         qs = matrix.prepare_queries(queries)
         qs_dev = torch.from_numpy(qs).to(matrix.device)
         k_cand = min(max(8 * k, 64, k_cand_floor or 0), n)
-        # The fused kernel yields one candidate per 64-row bucket; when
-        # that cannot supply the pool, the unfused path serves it.
-        if (
-            use_fused(matrix)
-            and xs_i8.shape[0] % TILE == 0
-            and k_cand <= xs_i8.shape[0] // BUCKET
-        ):
+        if fused_route(matrix, xs_i8.shape[0], xs_i8.shape[1], k_cand,
+                       i8_kernel_refusal):
             _, cand = int8_fused_coarse(xs_i8, qs_dev, n, k=k_cand)
         else:
             _, cand = int8_coarse_topk(
@@ -334,6 +352,12 @@ def i8_bucket_scores_reference(
     return mask_pack_reduce(int_dots(xs_i8, q_i8).float(), n_valid)
 
 
+def i8_kernel_refusal(n: int, d: int, b: int) -> str | None:
+    """Why ``csrc/i8_bucket_scores.cu`` cannot take ``xs_i8 [n, d]`` and
+    ``q_i8 [b, d]``, or None when it can."""
+    return kernel_refusal(n, d, b, I8_KERNEL_DEPTH)
+
+
 def check_kernel_operands(name: str, operands: dict, dtypes: dict) -> None:
     """Raise unless every operand is a contiguous, 16-byte aligned CUDA
     tensor of its dtype, all on one device."""
@@ -364,14 +388,11 @@ def i8_bucket_scores(
 
     CUDA tensors launch ``csrc/i8_bucket_scores.cu`` on the current stream
     and count the launch in ``i8_bucket_scores.launches``; CPU tensors
-    run :func:`i8_bucket_scores_reference`.  Anything the kernel does not
-    take raises."""
+    run :func:`i8_bucket_scores_reference` at any shape.  On other
+    devices, a shape :func:`i8_kernel_refusal` names and anything else the
+    kernel does not take raise."""
     if xs_i8.device.type == "cpu" and q_i8.device.type == "cpu":
         return i8_bucket_scores_reference(xs_i8, q_i8, n_valid)
-    check_kernel_operands(
-        "i8_bucket_scores", {"xs_i8": xs_i8, "q_i8": q_i8},
-        {"xs_i8": torch.int8, "q_i8": torch.int8},
-    )
     if xs_i8.dim() != 2 or q_i8.dim() != 2 or xs_i8.shape[1] != q_i8.shape[1]:
         raise ValueError(
             f"i8_bucket_scores shapes: xs [N, D] and q [B, D], got "
@@ -379,13 +400,13 @@ def i8_bucket_scores(
         )
     n, d = xs_i8.shape
     b = q_i8.shape[0]
-    if n == 0 or n % KERNEL_ROWS or d == 0 or d % KERNEL_DEPTH \
-            or b == 0 or b % KERNEL_QUERIES or n >= 1 << 31:
-        raise ValueError(
-            f"i8_bucket_scores needs N % {KERNEL_ROWS} == 0 (N < 2^31), "
-            f"D % {KERNEL_DEPTH} == 0 and B % {KERNEL_QUERIES} == 0 (all > "
-            f"0), got N={n} D={d} B={b}"
-        )
+    refusal = i8_kernel_refusal(n, d, b)
+    if refusal is not None:
+        raise ValueError(f"i8_bucket_scores: {refusal}")
+    check_kernel_operands(
+        "i8_bucket_scores", {"xs_i8": xs_i8, "q_i8": q_i8},
+        {"xs_i8": torch.int8, "q_i8": torch.int8},
+    )
     n_valid = max(0, min(int(n_valid), n))
     out = torch.empty((n // BUCKET, b), dtype=torch.float32,
                       device=xs_i8.device)
@@ -396,10 +417,7 @@ def i8_bucket_scores(
             xs_i8.data_ptr(), q_i8.data_ptr(), out.data_ptr(), n, d, b,
             n_valid, stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"i8_bucket_scores kernel launch failed: CUDA error {rc}"
-        )
+    check_launch("i8_bucket_scores", rc)
     count_launch(i8_bucket_scores)
     return out
 

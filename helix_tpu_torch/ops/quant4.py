@@ -12,7 +12,12 @@ its ids are sorted positions that ``perm`` maps back to rows.
 On a CUDA tensor :func:`i4_bucket_scores` launches the hand-written
 Hopper kernel ``csrc/i4_bucket_scores.cu`` (or raises); on a CPU tensor
 it runs :func:`i4_bucket_scores_reference`, the plain version the tests
-hold against the JAX kernel bit for bit.
+hold against the JAX kernel bit for bit.  The kernel unpacks 64 packed
+bytes of a row at a time into 128 int8 columns, ``[lo | hi]``, and takes
+the queries in the matching column order (:func:`chunk_ordered_queries`);
+it takes whole 64-row buckets (N < 2^31), D a multiple of 128 and B of
+128 or 256 (:func:`i4_kernel_refusal`), and the search routes a shape it
+refuses to the unfused path.
 
 Deliberate differences from the reference:
 
@@ -33,21 +38,21 @@ from .. import kernels
 from .distance import _round_up, _top_k
 from .fused_topk import (
     BUCKET,
-    KERNEL_DEPTH,
-    KERNEL_QUERIES,
-    KERNEL_ROWS,
-    TILE,
+    check_launch,
     descale_packed,
+    kernel_refusal,
     mask_pack_reduce,
     pad_rows_for_fused,
 )
 from .quant import (
+    I8_KERNEL_DEPTH,
     _padded_rows,
     _quantize_queries,
     _sq_device,
     check_kernel_operands,
     count_launch,
     fused_coarse,
+    fused_route,
     int_dots,
     use_fused,
 )
@@ -172,6 +177,24 @@ def i4_bucket_scores_reference(
                           bucket_scales[:, None])
 
 
+def i4_kernel_refusal(n: int, d: int, b: int) -> str | None:
+    """Why ``csrc/i4_bucket_scores.cu`` cannot take ``packed [n, d / 2]``
+    and ``q_i8 [b, d]``, or None when it can: ``d`` is the unpacked width,
+    whose halves are whole 64-byte packed chunks when ``d % 128 == 0``."""
+    return kernel_refusal(n, d, b, I8_KERNEL_DEPTH)
+
+
+def chunk_ordered_queries(q_i8: torch.Tensor) -> torch.Tensor:
+    """``q_i8 [B, D]`` with its columns in the kernel's chunk order: chunk
+    k (128 columns) is ``q[:, 64k:64k+64]`` then ``q[:, h+64k:h+64k+64]``
+    (h = D/2), the query columns that packed bytes ``[64k, 64k+64)`` hold
+    in their low and high nibbles.  The identity at D = 128."""
+    b, d = q_i8.shape
+    half = I8_KERNEL_DEPTH // 2
+    return q_i8.view(b, 2, d // I8_KERNEL_DEPTH, half).transpose(1, 2) \
+        .reshape(b, d)
+
+
 def i4_bucket_scores(
     packed: torch.Tensor, bucket_scales: torch.Tensor, q_i8: torch.Tensor,
     n_valid: int,
@@ -179,19 +202,16 @@ def i4_bucket_scores(
     """``[N / BUCKET, B]`` f32 de-scaled packed winners over packed int4.
 
     CUDA tensors launch ``csrc/i4_bucket_scores.cu`` on the current
-    stream and count the launch in ``i4_bucket_scores.launches``; CPU
-    tensors run :func:`i4_bucket_scores_reference`.  Anything the kernel
-    does not take raises."""
+    stream with the queries in chunk order (:func:`chunk_ordered_queries`)
+    and count the launch in ``i4_bucket_scores.launches``; CPU tensors run
+    :func:`i4_bucket_scores_reference` at any shape.  On other devices, a
+    shape :func:`i4_kernel_refusal` names and anything else the kernel
+    does not take raise."""
     operands = {"packed": packed, "bucket_scales": bucket_scales,
                 "q_i8": q_i8}
     if all(t.device.type == "cpu" for t in operands.values()):
         return i4_bucket_scores_reference(packed, bucket_scales, q_i8,
                                           n_valid)
-    check_kernel_operands(
-        "i4_bucket_scores", operands,
-        {"packed": torch.uint8, "bucket_scales": torch.float32,
-         "q_i8": torch.int8},
-    )
     if packed.dim() != 2 or q_i8.dim() != 2 \
             or q_i8.shape[1] != 2 * packed.shape[1]:
         raise ValueError(
@@ -201,13 +221,14 @@ def i4_bucket_scores(
     n, h = packed.shape
     d = 2 * h
     b = q_i8.shape[0]
-    if n == 0 or n % KERNEL_ROWS or h == 0 or h % KERNEL_DEPTH \
-            or b == 0 or b % KERNEL_QUERIES or n >= 1 << 31:
-        raise ValueError(
-            f"i4_bucket_scores needs N % {KERNEL_ROWS} == 0 (N < 2^31), "
-            f"D/2 % {KERNEL_DEPTH} == 0 and B % {KERNEL_QUERIES} == 0 (all "
-            f"> 0), got N={n} D={d} B={b}"
-        )
+    refusal = i4_kernel_refusal(n, d, b)
+    if refusal is not None:
+        raise ValueError(f"i4_bucket_scores: {refusal}")
+    check_kernel_operands(
+        "i4_bucket_scores", operands,
+        {"packed": torch.uint8, "bucket_scales": torch.float32,
+         "q_i8": torch.int8},
+    )
     if tuple(bucket_scales.shape) != (n // BUCKET,):
         raise ValueError(
             f"i4_bucket_scores: bucket_scales must be [{n // BUCKET}], got "
@@ -216,17 +237,15 @@ def i4_bucket_scores(
     n_valid = max(0, min(int(n_valid), n))
     out = torch.empty((n // BUCKET, b), dtype=torch.float32,
                       device=packed.device)
+    q_perm = chunk_ordered_queries(q_i8)
     lib = kernels.load()
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hx_i4_bucket_scores(
-            packed.data_ptr(), bucket_scales.data_ptr(), q_i8.data_ptr(),
+            packed.data_ptr(), bucket_scales.data_ptr(), q_perm.data_ptr(),
             out.data_ptr(), n, d, b, n_valid, stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"i4_bucket_scores kernel launch failed: CUDA error {rc}"
-        )
+    check_launch("i4_bucket_scores", rc)
     count_launch(i4_bucket_scores)
     return out
 
@@ -313,13 +332,8 @@ class Int4Resident:
         k_cand = min(
             max(recall_safe_pool_int4(n, k), k_cand_floor or 0), n
         )
-        # One candidate per 64-row bucket: when the bucket count cannot
-        # supply the pool, the unfused path serves the full pool.
-        if (
-            use_fused(matrix)
-            and packed.shape[0] % TILE == 0
-            and k_cand <= packed.shape[0] // BUCKET
-        ):
+        if fused_route(matrix, packed.shape[0], 2 * packed.shape[1], k_cand,
+                       i4_kernel_refusal):
             _, cand = int4_fused_coarse(packed, bsc, qs_dev, n, k=k_cand)
         else:
             _, cand = int4_coarse_topk(

@@ -336,13 +336,7 @@ def test_reference_int8_state_installs_into_the_port(single_device):
 
 
 def test_use_fused_gate():
-    class M:
-        ROW_PAD = 512
-
-        def __init__(self, device, metric, n, dim_pad):
-            self.device = torch.device(device)
-            self.metric, self.n, self.dim_pad = metric, n, dim_pad
-
+    M = FakeMatrix
     assert TQ.use_fused(M("cuda", "cosine", 8192, 128))
     assert TQ.use_fused(M("cuda", "cosine", 10**6, 4096))  # no width cap
     assert not TQ.use_fused(M("cuda", "cosine", 8191, 128))
@@ -351,18 +345,97 @@ def test_use_fused_gate():
     assert not TQ.use_fused(M("cuda", "cosine", 8192, 192))
 
 
+class FakeMatrix:
+    """What ``use_fused`` and ``fused_route`` read of a ``PackedMatrix``."""
+    ROW_PAD = 512
+
+    def __init__(self, device, metric, n, dim_pad):
+        self.device = torch.device(device)
+        self.metric, self.n, self.dim_pad = metric, n, dim_pad
+
+
+@pytest.mark.parametrize("n,d,b,why", [
+    (8192, 64, 128, "D=64"),        # not a whole 128-column int8 chunk
+    (8192, 192, 256, "D=192"),
+    (8192, 0, 128, "D=0"),
+    (8192 + 32, 128, 128, "N=8224"),  # a part bucket
+    (0, 128, 128, "N=0"),
+    (1 << 31, 128, 128, "N=2147483648"),
+    (8192, 128, 64, "B=64"),        # neither query block
+    (8192, 128, 192, "B=192"),
+    (8192, 128, 384, "B=384"),
+])
+def test_i8_bucket_scores_refuses_shapes_the_kernel_does_not_take(n, d, b,
+                                                                  why):
+    """Off the CPU, the wrapper raises with the refusal's reason before it
+    looks at the device (meta tensors reach the shape checks)."""
+    assert why in TQ.i8_kernel_refusal(n, d, b)
+    xs = torch.empty((n, d), dtype=torch.int8, device="meta")
+    q = torch.empty((b, d), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match=f"i8_bucket_scores: {why}"):
+        TQ.i8_bucket_scores(xs, q, n)
+
+
+@pytest.mark.parametrize("n,d,b", [
+    (8192, 128, 128), (8192, 128, 256), (3 * 8192, 768, 256),
+    (64, 4096, 128),
+])
+def test_i8_kernel_refusal_admits_the_kernel_shapes(n, d, b):
+    assert TQ.i8_kernel_refusal(n, d, b) is None
+    xs = torch.empty((n, d), dtype=torch.int8, device="meta")
+    q = torch.empty((b, d), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):  # past the shape checks
+        TQ.i8_bucket_scores(xs, q, n)
+
+
+def test_search_routing_hands_the_kernel_only_shapes_it_takes():
+    """``QuantizedResident.search`` takes the fused kernel exactly when
+    ``fused_route`` says so, and that never admits a shape the kernel
+    refuses at either query block ``fused_coarse`` pads to."""
+    for n in (TQ.TILE, 3 * TQ.TILE, 1 << 31):
+        for d in range(64, 2049, 64):
+            m = FakeMatrix("cuda", "cosine", n, d)
+            route = TQ.fused_route(m, n, d, 64, TQ.i8_kernel_refusal)
+            takes = all(TQ.i8_kernel_refusal(n, d, b) is None
+                        for b in TQ.BUCKET_KERNEL_QUERIES)
+            assert not route or takes, (n, d)
+            assert route == (takes and d % 128 == 0), (n, d)
+    m = FakeMatrix("cuda", "cosine", TQ.TILE, 128)
+    assert TQ.fused_route(m, TQ.TILE, 128, TQ.TILE // 64, TQ.i8_kernel_refusal)
+    assert not TQ.fused_route(m, TQ.TILE, 128, TQ.TILE // 64 + 1,
+                              TQ.i8_kernel_refusal)
+    assert not TQ.fused_route(m, TQ.TILE + 512, 128, 64, TQ.i8_kernel_refusal)
+    cpu = FakeMatrix("cpu", "cosine", TQ.TILE, 128)
+    assert not TQ.fused_route(cpu, TQ.TILE, 128, 64, TQ.i8_kernel_refusal)
+
+
+# (rows, width, queries, rows live): the main path's D=128 at both query
+# blocks, a width whose queries fit in shared memory (D=256), and D=768,
+# whose queries stream through the rings at B=256 and stay resident at
+# B=128; n_valid in mid-bucket.
+CARD_SHAPES = [
+    (3 * 8192, 256, 256, 3 * 8192 - 77),
+    (3 * 8192, 128, 256, 3 * 8192 - 4000),
+    (2 * 8192, 128, 128, 2 * 8192 - 33),
+    (8192, 768, 256, 8192 - 100),
+    (8192, 768, 128, 5000),
+]
+
+
 @pytest.mark.cuda
 def test_i8_bucket_scores_kernel_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
     dev = torch.device("cuda")
-    xi = torch.from_numpy(TQ.quantize_rows_unit(unit_rows(3 * 8192, 256, 41)))
-    q_i8, _ = TQ._quantize_queries(torch.from_numpy(unit_rows(256, 256, 42)))
-    n_valid = 3 * 8192 - 77
-    before = TQ.i8_bucket_scores.launches
-    got = TQ.i8_bucket_scores(xi.to(dev), q_i8.to(dev), n_valid).cpu()
-    assert TQ.i8_bucket_scores.launches == before + 1
-    want = TQ.i8_bucket_scores_reference(xi, q_i8, n_valid)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for seed, (n, d, b, n_valid) in enumerate(CARD_SHAPES):
+        rows = unit_rows(n, d, 41 + seed)
+        xi = torch.from_numpy(TQ.quantize_rows_unit(rows))
+        q_i8, _ = TQ._quantize_queries(
+            torch.from_numpy(unit_rows(b, d, 50 + seed)))
+        before = TQ.i8_bucket_scores.launches
+        got = TQ.i8_bucket_scores(xi.to(dev), q_i8.to(dev), n_valid).cpu()
+        assert TQ.i8_bucket_scores.launches == before + 1
+        want = TQ.i8_bucket_scores_reference(xi, q_i8, n_valid)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     with pytest.raises(ValueError):
         TQ.i8_bucket_scores(xi.to(dev), q_i8[:100].to(dev), n_valid)

@@ -29,7 +29,14 @@ from helix_tpu_torch.convert import (
 from helix_tpu_torch.ops import quant as TQ
 from helix_tpu_torch.ops import quant4 as TQ4
 
-from tests.test_torch_quant import bits, boundary_ids, jax_q, unit_rows
+from tests.test_torch_quant import (
+    CARD_SHAPES,
+    FakeMatrix,
+    bits,
+    boundary_ids,
+    jax_q,
+    unit_rows,
+)
 
 torch.set_num_threads(2)
 
@@ -266,22 +273,86 @@ def test_reference_int4_state_installs_into_the_port(single_device):
     np.testing.assert_array_equal(gd, np.asarray(wd))
 
 
+@pytest.mark.parametrize("n,d,b,why", [
+    (8192, 64, 128, "D=64"),        # halves of 32 packed bytes
+    (8192, 192, 256, "D=192"),
+    (8192 + 32, 128, 128, "N=8224"),
+    (0, 128, 128, "N=0"),
+    (1 << 31, 128, 128, "N=2147483648"),
+    (8192, 128, 64, "B=64"),
+    (8192, 128, 192, "B=192"),
+])
+def test_i4_bucket_scores_refuses_shapes_the_kernel_does_not_take(n, d, b,
+                                                                  why):
+    """Off the CPU, the wrapper raises with the refusal's reason before it
+    looks at the device (meta tensors reach the shape checks)."""
+    assert why in TQ4.i4_kernel_refusal(n, d, b)
+    packed = torch.empty((n, d // 2), dtype=torch.uint8, device="meta")
+    bsc = torch.empty(max(n // 64, 1), dtype=torch.float32, device="meta")
+    q = torch.empty((b, d), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match=f"i4_bucket_scores: {why}"):
+        TQ4.i4_bucket_scores(packed, bsc, q, n)
+
+
+def test_i4_search_routing_hands_the_kernel_only_shapes_it_takes():
+    """``Int4Resident.search`` routes through ``fused_route`` with the
+    unpacked width: it never admits a shape the kernel refuses."""
+    for n in (TQ.TILE, 3 * TQ.TILE, 1 << 31):
+        for d in range(64, 2049, 64):
+            m = FakeMatrix("cuda", "cosine", n, d)
+            route = TQ.fused_route(m, n, d, 64, TQ4.i4_kernel_refusal)
+            takes = all(TQ4.i4_kernel_refusal(n, d, b) is None
+                        for b in TQ.BUCKET_KERNEL_QUERIES)
+            assert not route or takes, (n, d)
+            assert route == (takes and d % 128 == 0), (n, d)
+
+
+def chunk_ordered_codes(packed):
+    """The kernel's unpack order: packed chunk k (64 bytes) becomes the
+    sign-extended low nibbles, then the high nibbles."""
+    lo = (packed.astype(np.int16) << 12).astype(np.int16) >> 12
+    hi = (packed.astype(np.int16) << 8).astype(np.int16) >> 12
+    n, h = packed.shape
+    chunks = [np.concatenate([lo[:, c:c + 64], hi[:, c:c + 64]], axis=1)
+              for c in range(0, h, 64)]
+    return np.concatenate(chunks, axis=1).astype(np.int8)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_chunk_ordered_queries_pair_with_the_unpacked_chunks(d):
+    """The plain dots of the unpacked codes against q equal those of the
+    kernel's chunk-ordered codes against ``chunk_ordered_queries(q)``
+    (the identity at D=128)."""
+    packed, _, _, _ = TQ4.quantize_rows_int4_bucketed(unit_rows(4096, d, d))
+    q_i8, _ = TQ._quantize_queries(torch.from_numpy(unit_rows(128, d, 3)))
+    q_perm = TQ4.chunk_ordered_queries(q_i8)
+    assert q_perm.is_contiguous() and q_perm.shape == q_i8.shape
+    if d == 128:
+        assert torch.equal(q_perm, q_i8)
+    else:
+        assert not torch.equal(q_perm, q_i8)
+    want = TQ.int_dots(torch.from_numpy(TQ4.unpack_int4(packed)), q_i8)
+    got = TQ.int_dots(torch.from_numpy(chunk_ordered_codes(packed)), q_perm)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_i4_bucket_scores_kernel_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
     dev = torch.device("cuda")
-    n_valid = 3 * 8192 - 77
-    packed, bsc, _, _ = TQ4.quantize_rows_int4_bucketed(
-        unit_rows(3 * 8192, 256, 41), n_live=n_valid)
-    q_i8, _ = TQ._quantize_queries(torch.from_numpy(unit_rows(256, 256, 42)))
-    packed, bsc = torch.from_numpy(packed), torch.from_numpy(bsc)
-    before = TQ4.i4_bucket_scores.launches
-    got = TQ4.i4_bucket_scores(packed.to(dev), bsc.to(dev), q_i8.to(dev),
-                               n_valid).cpu()
-    assert TQ4.i4_bucket_scores.launches == before + 1
-    want = TQ4.i4_bucket_scores_reference(packed, bsc, q_i8, n_valid)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for seed, (n, d, b, n_valid) in enumerate(CARD_SHAPES):
+        packed, bsc, _, _ = TQ4.quantize_rows_int4_bucketed(
+            unit_rows(n, d, 41 + seed), n_live=n_valid)
+        q_i8, _ = TQ._quantize_queries(
+            torch.from_numpy(unit_rows(b, d, 50 + seed)))
+        packed, bsc = torch.from_numpy(packed), torch.from_numpy(bsc)
+        before = TQ4.i4_bucket_scores.launches
+        got = TQ4.i4_bucket_scores(packed.to(dev), bsc.to(dev), q_i8.to(dev),
+                                   n_valid).cpu()
+        assert TQ4.i4_bucket_scores.launches == before + 1
+        want = TQ4.i4_bucket_scores_reference(packed, bsc, q_i8, n_valid)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     with pytest.raises(ValueError):
         TQ4.i4_bucket_scores(packed.to(dev), bsc[:5].to(dev), q_i8.to(dev),
                              n_valid)
