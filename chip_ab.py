@@ -12,8 +12,10 @@ device path the engine's exact rung takes below ``Partition.search_many``
 (``search_packed`` with the live mask, k=10): 16 batches of 256 queries
 and 128 single queries (wall time of each search, which ends in the host
 copy of its answer), kernel 1 alone at B=256 and B=128 (CUDA events over
-10 back-to-back launches, median of 7 query batches), and 4 more B=256
-batches under ``torch.profiler``: their device busy time (the union of
+10 back-to-back launches, median of 7 query batches), the fused coarse
++ re-rank step ``fused_topk`` at B=256, k=16 (CUDA events, median and
+quartile gap of 14 calls; less kernel 1's time, the top-k + re-rank
+tail), and 4 more B=256 batches under ``torch.profiler``: their device busy time (the union of
 the kernel and copy intervals) and their wall time, whose ratio gives
 the device's idle share.  It checks recall@10 of the first batch against
 a float32 numpy oracle.  Then kernels 2 and 3 alone on the same rows
@@ -136,6 +138,18 @@ def child(root: str) -> None:
     k1 = {b: kernel_ms(F.bucket_scores,
                        lambda q: (xs16, q.to(torch.bfloat16), N), b)
           for b in (256, 128)}
+    # The fused coarse + re-rank step (the exact rung's device part) at
+    # the engine's k bucket for k=10; less kernel 1's time it is the
+    # top-k + re-rank tail, which holds the selections' tie rule.
+    xs32, sq = matrix.data_device(), matrix.device_arrays()[1]
+    fused = []
+    for r in range(7):
+        q = torch.from_numpy(queries[r * BATCH:(r + 1) * BATCH]).cuda()
+        F.fused_topk(xs16, xs32, q, N, sq, k=16)
+        fused += [chip_smoke.cuda_ms(F.fused_topk, xs16, xs32, q, N, sq,
+                                     k=16) for _ in range(2)]
+    q1, fused_ms, q3 = np.percentile(fused, [25, 50, 75])
+    del xs32, sq
     # Kernels 2 and 3 alone, on the rows as the rungs quantize them.
     xs_i8, _, _ = Q.QuantizedResident().arrays(matrix)
     packed, _, _, bsc, _ = Q4.Int4Resident().arrays(matrix)
@@ -177,6 +191,8 @@ def child(root: str) -> None:
         "single_p50_ms": float(np.percentile(single_ms, 50)),
         "single_p90_ms": float(np.percentile(single_ms, 90)),
         "kernel_b256_ms": k1[256], "kernel_b128_ms": k1[128],
+        "fused_ms": float(fused_ms), "fused_iqr_ms": float(q3 - q1),
+        "tail_ms": float(fused_ms) - k1[256],
         "i8_kernel_b256_ms": k2[256], "i8_kernel_b128_ms": k2[128],
         "i4_kernel_b256_ms": k3[256], "i4_kernel_b128_ms": k3[128],
         "int8_batch_ms": float(np.median(int8_ms)),

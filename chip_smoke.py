@@ -37,7 +37,7 @@ Phases, each failing the run on a bad check:
    ``Partition.search_many`` batches.  The answers hold recall@10 >= 0.99
    and exact ``$distance`` against a float32 numpy oracle, a dropped top
    hit disappears, and the launch counts show that kernel 1 served.
-   Then the same engine takes 1.6M labeled edges through write batches
+   Then the same engine takes 800k labeled edges through write batches
    and answers set-reduced traversals (``N``/``NWhere`` -> ``Out`` /
    ``In`` / ``Both`` -> ``Where`` -> ``Dedup`` -> ``Count`` / ``Exists``,
    an ``OrderBy`` membership tail) and hybrid reads
@@ -61,6 +61,19 @@ Phases, each failing the run on a bad check:
 7. Text: a 116,969-doc BM25 index through the engine
    (``TextSearchNodes``): the device path's ids equal the host path's,
    scores within rtol 1e-5, both timed.
+8. Serve: the exact cell again, from disk and over HTTP
+   (``serve_phase``): an engine with a data dir ingests 1M rows with the
+   WAL on and checkpoints; the native gateway recovers it in process
+   (recovery and the first search after it timed), installs a bundle over
+   HTTP and answers 128 single requests (p50 / p90) and 4,096 requests
+   with 256 in flight (QPS) on the vector fast path into kernel 1, held
+   to a numpy oracle, ``fast_requests`` and kernel 1's launch count;
+   then ``python3 -m helix_tpu_torch.server.http_server`` recovers the
+   same dir (the HTTP write from the WAL), answers alike, and exits 0 on
+   SIGTERM after its checkpoint.
+
+Kernel 1's phase also checks the tie rule (rows duplicated into
+different buckets come back lowest position first on 5 calls).
 
 Every device op counts its calls on CUDA tensors (``device_counts``);
 a forced device path that shows none fails the run.  The last lines are
@@ -77,6 +90,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -100,10 +114,11 @@ GRAPH_NODES = 1_000_000
 GRAPH_DEGREE = 16
 GRAPH_LABELS = 4
 # Edges written into the exact phase's engine, ENGINE_DEGREE per source
-# node: the engine's write path sustained 18,300-25,100 edges/s on the
-# H100 machine's host, so 1.6M edges take 64-90 s.
+# node: the engine's write path sustained 15,400-25,100 edges/s on the
+# H100 machine's host, so 800k edges take 32-52 s (cut from 1.6M to keep
+# the whole run well inside its time limit once the serve phase came).
 ENGINE_DEGREE = 4
-ENGINE_EDGES = 1_600_000
+ENGINE_EDGES = 800_000
 EDGE_CHUNK = 25_000
 # The largest corpus of the test generator whose most common word stays
 # within DevicePostings' cap of 65,536 postings.
@@ -304,9 +319,45 @@ def kernel_phase(device: torch.device) -> dict:
     ]))
     log(f"fused_topk (kernel + top-k + f32 re-rank) B={BATCH}: "
         f"{fused_ms:.4f} ms")
+    check_tie_order(xs16, xs32, sq, queries[0])
     return {"max_abs_err": max_err, "ms": t["kernel"], "plain_ms": t["plain"],
             "library_ms": t["library"], "bound_ms": b_ms, "bound_by": b_by,
             "fused_ms": fused_ms}
+
+
+# Slot 6 of these buckets takes a copy of row TIE_ROW (bucket 1, slot 6).
+TIE_ROW = 70
+TIE_BUCKETS = (0, 40, 100, 101, 200, 5000, 15000)
+
+
+def check_tie_order(xs16, xs32, sq, queries) -> None:
+    """Rows duplicated into different buckets, searched by a query that
+    is that row, come back lowest position first (the reference's
+    ``lax.top_k`` order) and identical on 5 repeated calls."""
+    from helix_tpu_torch.ops import fused_topk as F
+
+    dups = [b * F.BUCKET + TIE_ROW % F.BUCKET for b in TIE_BUCKETS]
+    saved16, saved32 = xs16[dups].clone(), xs32[dups].clone()
+    xs16[dups] = xs16[TIE_ROW].clone()
+    xs32[dups] = xs32[TIE_ROW].clone()
+    qs = queries.float().clone()
+    qs[0] = xs32[TIE_ROW]
+    try:
+        want = sorted([TIE_ROW] + dups)
+        first = None
+        for _ in range(5):
+            dists, ids = F.fused_topk(xs16, xs32, qs, N_ROWS, sq, k=16)
+            check(ids[0, :len(want)].tolist() == want,
+                  f"tied rows came back as {ids[0, :len(want)].tolist()}, "
+                  f"want {want}")
+            if first is None:
+                first = (dists, ids)
+            check(torch.equal(ids, first[1]) and torch.equal(dists, first[0]),
+                  "fused_topk answered differently on a repeated call")
+    finally:
+        xs16[dups], xs32[dups] = saved16, saved32
+    log(f"tie order: {len(want)} equal rows in {len(want)} buckets come back "
+        f"lowest position first, identical on 5 calls of B={qs.shape[0]}")
 
 
 def check_bitwise(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1316,6 +1367,413 @@ def text_phase(device: torch.device, n_docs: int = N_TEXT_DOCS) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- serve
+
+# The fast path's stored route: VectorSearchNodes -> ValueMap($id,
+# $distance), which the native gateway answers from C++ after one
+# search_many_async per batch.
+FAST_STEPS = [SEARCH_STEPS[0], {"ValueMap": ["$id", "$distance"]}]
+N_LOAD = 4096          # requests of the load step
+LOAD_CONNECTIONS = 32  # keep-alive connections of the load step ...
+LOAD_WINDOW = 8        # ... each with this many requests pipelined
+N_REPLAY = 64          # requests the entry point must answer alike
+HTTP_TIMEOUT = 120
+SERVER_READY_S = 600
+
+
+def serve_bundle() -> dict:
+    params = [{"name": "q", "ty": {"Array": "F32"}}, {"name": "k", "ty": "I64"}]
+    routes = {"vsearch": SEARCH_STEPS, "vfast": FAST_STEPS}
+    return {
+        "version": 5,
+        "read_routes": {name: {"queries": [{"Query": {
+            "name": "hits", "steps": steps, "condition": None}}],
+            "returns": ["hits"]} for name, steps in routes.items()},
+        "read_parameters": {name: params for name in routes},
+        "write_routes": {}, "write_parameters": {},
+    }
+
+
+def http_json(port: int, method: str, path: str, body=None,
+              headers: dict | None = None, conn=None):
+    """``(status, parsed JSON)`` of one request, on ``conn`` (a
+    keep-alive ``http.client.HTTPConnection``) when given."""
+    import http.client
+
+    own = conn is None
+    if own:
+        conn = http.client.HTTPConnection("127.0.0.1", port,
+                                          timeout=HTTP_TIMEOUT)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data, headers={
+            "Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        raw = resp.read()
+        return resp.status, json.loads(raw) if raw else None
+    finally:
+        if own:
+            conn.close()
+
+
+def http_load(port: int, bodies: list, connections: int,
+              window: int) -> tuple[float, list]:
+    """POST every body to ``/v1/query/vfast`` over ``connections``
+    keep-alive sockets, each with up to ``window`` requests pipelined
+    (``connections * window`` in flight), on one thread per socket that
+    only writes, reads and splits responses.  Returns the wall seconds
+    from the first write to the last response and ``(status, body
+    bytes)`` per request."""
+    import socket
+    import threading
+
+    reqs = [b"POST /v1/query/vfast HTTP/1.1\r\nHost: x\r\nContent-Type: "
+            b"application/json\r\nContent-Length: " + str(len(b)).encode()
+            + b"\r\n\r\n" + b for b in (json.dumps(x).encode() for x in bodies)]
+    answers: list = [None] * len(bodies)
+    errors: list = []
+    shares = [list(range(c, len(bodies), connections))
+              for c in range(connections)]
+    socks = [socket.create_connection(("127.0.0.1", port),
+                                      timeout=HTTP_TIMEOUT)
+             for _ in range(connections)]
+
+    def run(sock, share):
+        try:
+            sent = min(window, len(share))
+            sock.sendall(b"".join(reqs[i] for i in share[:sent]))
+            got, buf = 0, b""
+            while got < len(share):
+                data = sock.recv(1 << 20)
+                if not data:
+                    raise ConnectionError("server closed the connection")
+                buf += data
+                while True:
+                    head_end = buf.find(b"\r\n\r\n")
+                    if head_end < 0:
+                        break
+                    head = buf[:head_end].lower()
+                    at = head.find(b"content-length:") + 15
+                    line_end = head.find(b"\r\n", at)
+                    length = int(head[at:line_end if line_end >= 0 else None])
+                    end = head_end + 4 + length
+                    if len(buf) < end:
+                        break
+                    answers[share[got]] = (int(head[9:12]),
+                                           buf[head_end + 4:end])
+                    buf = buf[end:]
+                    got += 1
+                    if sent < len(share):
+                        sock.sendall(reqs[share[sent]])
+                        sent += 1
+        except Exception as exc:  # reported after the join
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(s, share))
+               for s, share in zip(socks, shares)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    seconds = time.perf_counter() - t0
+    for s in socks:
+        s.close()
+    check(not errors, f"load: {errors[:3]}")
+    return seconds, answers
+
+
+def check_hits(engine, queries: np.ndarray, answers: list, what: str,
+               oracle_rows: int) -> dict:
+    """Every answer is a 200 with K hits of finite ``$distance`` within
+    TOL of ``1 - q.x`` over the stored rows; recall@K against a float32
+    numpy oracle over the first ``oracle_rows`` queries."""
+    part = doc_partition(engine)
+    matrix = part.matrix
+    stored = matrix.data[: matrix.n]
+    qs = matrix.prepare_queries(queries)
+    worst, rows = 0.0, []
+    for j, (status, out) in enumerate(answers):
+        check(status == 200 and len(out["hits"]) == K,
+              f"{what}: request {j} answered {status} {str(out)[:200]}")
+        pos = [part.pos[h["$id"]] for h in out["hits"]]
+        dists = np.array([h["$distance"] for h in out["hits"]])
+        check(np.isfinite(dists).all(), f"{what}: non-finite $distance")
+        want = 1.0 - stored[pos] @ qs[j]
+        worst = max(worst, float(np.max(np.abs(dists - want))))
+        rows.append(pos)
+    sims = qs[:oracle_rows] @ stored.T
+    oracle = top_rows(sims, K)
+    recall = float(np.mean([len(set(rows[j]) & set(oracle[j].tolist())) / K
+                            for j in range(oracle_rows)]))
+    check(recall >= 0.99, f"{what}: recall@{K} {recall} < 0.99")
+    check(worst <= TOL, f"{what}: $distance off by {worst}")
+    return {"recall": recall, "max_dist_err": worst}
+
+
+def serve_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
+    """The HTTP front door on the exact cell, from disk.
+
+    1. ``Engine(device, data_dir)`` ingests ``n_rows`` through ``ForEach
+       AddN`` batches with the WAL on (default fsync), checkpoints and
+       closes its WAL.
+    2. ``NativeGateway(data_dir=...)`` recovers it (timed), answers a
+       first search (timed: the device arrays are rebuilt), installs a
+       bundle over HTTP whose ``vfast`` route rides the vector fast path,
+       then takes 128 sequential single requests (p50 / p90) and
+       ``N_LOAD`` requests with ``LOAD_CONNECTIONS * LOAD_WINDOW`` in
+       flight (QPS), all checked against a numpy oracle, counted by the
+       gateway's ``fast_requests`` and by kernel 1's launches (one per
+       block of at most 256 rows of each batch the vbatch loop formed,
+       no other kernel); no request may reach the interpreter fallback.  A durable HTTP write and a read
+       that finds it close the step, which then stops the gateway
+       without a checkpoint: the write lives only in the WAL.
+    3. ``python3 -m helix_tpu_torch.server.http_server --data-dir`` (the
+       default device; ``--device cpu`` in a CPU rehearsal) recovers the
+       same dir; seconds to its first answered search; ``N_REPLAY`` of
+       the same requests and the new vector's read answer as in step 2;
+       no "native gateway unavailable" on stderr; SIGTERM exits 0 after
+       writing the snapshot; the kernel library was not rebuilt."""
+    import shutil
+    import signal
+    import tempfile
+
+    from helix_tpu_torch import kernels
+    from helix_tpu_torch.server.native_gateway import NativeGateway
+
+    data, queries = make_dataset(n_rows, DIM, N_PROBE + N_LOAD)
+    tmp = tempfile.mkdtemp(prefix="helix-serve-")
+    data_dir = os.path.join(tmp, "data")
+    snapshot = os.path.join(data_dir, "snapshot.bin")
+    out: dict = {}
+    gateway = proc = None
+    try:
+        engine = new_engine(device, data_dir=data_dir)
+        out["ingest_s"] = ingest(engine, data, 0, n_rows)
+        t = time.perf_counter()
+        engine.checkpoint()
+        out["checkpoint_s"] = time.perf_counter() - t
+        out["snapshot_bytes"] = os.path.getsize(snapshot)
+        engine.persistence.close()
+        del engine
+        gc.collect()
+        log(f"serve: ingest {n_rows} x {DIM} with the WAL on "
+            f"{out['ingest_s']:.1f} s ({n_rows / out['ingest_s']:.0f} "
+            f"docs/s); checkpoint {out['checkpoint_s']:.2f} s, snapshot "
+            f"{out['snapshot_bytes']} bytes")
+
+        # -- 2. in process
+        t = time.perf_counter()
+        gateway = NativeGateway(host="127.0.0.1", port=0, data_dir=data_dir,
+                                device=str(device))
+        out["recovery_s"] = time.perf_counter() - t
+        gateway.start()
+        port = gateway.port
+        engine = gateway.engine
+        check(doc_partition(engine).matrix.n == n_rows,
+              f"recovered {doc_partition(engine).matrix.n} rows")
+        reset_launch_counts()
+        t = time.perf_counter()
+        status, first = http_json(port, "POST", "/v1/query/vsearch",
+                                  {"q": queries[0].tolist(), "k": K})
+        out["first_search_ms"] = (time.perf_counter() - t) * 1e3
+        check(status == 200 and len(first["hits"]) == K,
+              f"first search after recovery: {status} {str(first)[:200]}")
+        launches = launch_counts()
+        log(f"serve: recovery (snapshot + WAL replay + vector backfill) "
+            f"{out['recovery_s']:.2f} s; first search after recovery "
+            f"(device upload + search) {out['first_search_ms']:.1f} ms")
+        status, installed = http_json(port, "POST", "/v1/bundle",
+                                      serve_bundle())
+        check(status == 200 and installed["installed"] == ["vfast",
+                                                           "vsearch"],
+              f"bundle install: {status} {installed}")
+
+        # the batches the vbatch loop forms: one search_many_async each
+        part = doc_partition(engine)
+        batches: list = []
+        search_async = part.search_many_async
+
+        def counted(qs, k):
+            batches.append(len(qs))
+            return search_async(qs, k)
+
+        part.search_many_async = counted
+        # a request the fast path queued but the interpreter answered
+        # (a dispatch or finalize exception) still comes back a 200
+        fallbacks: list = []
+        slow_fallback = gateway._respond_slow_fallback
+
+        def counted_fallback(*args, **kwargs):
+            fallbacks.append(args[0])
+            return slow_fallback(*args, **kwargs)
+
+        gateway._respond_slow_fallback = counted_fallback
+        fast0 = gateway.stats()["fast_requests"]
+        reset_launch_counts()
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", port,
+                                          timeout=HTTP_TIMEOUT)
+        singles, latencies = [], []
+        for q in queries[:N_PROBE]:
+            t = time.perf_counter()
+            singles.append(http_json(port, "POST", "/v1/query/vfast",
+                                     {"q": q.tolist(), "k": K}, conn=conn))
+            latencies.append((time.perf_counter() - t) * 1e3)
+        conn.close()
+        out["single"] = check_hits(engine, queries[:N_PROBE], singles,
+                                   "HTTP single", N_PROBE)
+        out["p50_ms"], out["p90_ms"] = (float(np.percentile(latencies, p))
+                                        for p in (50, 90))
+        single_batches, batches[:] = list(batches), []
+        load_q = queries[N_PROBE:N_PROBE + N_LOAD]
+        seconds, raw = http_load(port, [{"q": q.tolist(), "k": K}
+                                        for q in load_q],
+                                 LOAD_CONNECTIONS, LOAD_WINDOW)
+        out["qps"] = N_LOAD / seconds
+        out["load"] = check_hits(engine, load_q,
+                                 [(s, json.loads(b)) for s, b in raw],
+                                 "HTTP load", BATCH)
+        counts = launch_counts()
+        del part.search_many_async, gateway._respond_slow_fallback
+        out["load_batches"] = len(batches)
+        out["load_batch_mean"] = float(np.mean(batches))
+        out["load_batch_max"] = max(batches)
+        fast = gateway.stats()["fast_requests"] - fast0
+        sent = N_PROBE + N_LOAD
+        check(fast == sent, f"fast_requests rose by {fast}, sent {sent}")
+        check(not fallbacks, f"{len(fallbacks)} fast-path requests were "
+              f"answered by the interpreter")
+        check(sum(single_batches) + sum(batches) == sent,
+              f"the vbatch loop searched {sum(single_batches) + sum(batches)}"
+              f" rows for {sent} requests")
+        if device.type == "cuda":
+            # one launch per block of at most MAX_QUERY_BLOCK rows
+            from helix_tpu_torch.ops.fused_topk import MAX_QUERY_BLOCK
+            blocks = sum(-(-b // MAX_QUERY_BLOCK)
+                         for b in single_batches + batches)
+            check(counts["bucket_scores"] == blocks < sent,
+                  f"kernel 1 launched {counts['bucket_scores']} times for "
+                  f"{blocks} query blocks of {sent} requests")
+            check_only_launched(device, counts, "bucket_scores", "serve")
+        out["launches"] = counts["bucket_scores"] + launches["bucket_scores"]
+        out["fast_requests"] = fast
+        log(f"serve: HTTP single requests p50 {out['p50_ms']:.3f} ms p90 "
+            f"{out['p90_ms']:.3f} ms (n={N_PROBE}), recall@{K} "
+            f"{out['single']['recall']:.4f}; {N_LOAD} requests with "
+            f"{LOAD_CONNECTIONS * LOAD_WINDOW} in flight in {seconds:.3f} s: "
+            f"{out['qps']:.0f} QPS over HTTP, recall@{K} "
+            f"{out['load']['recall']:.4f} (first {BATCH}), max |$distance - "
+            f"(1 - q.x)| {max(out['single']['max_dist_err'], out['load']['max_dist_err']):.3g}; "
+            f"fast_requests +{fast}; kernel launches {counts}; batches: "
+            f"singles {len(single_batches)} of max {max(single_batches)}, "
+            f"load {len(batches)} of mean {out['load_batch_mean']:.1f} max "
+            f"{out['load_batch_max']}")
+
+        new_vec = np.random.default_rng(43).normal(size=DIM)
+        new_vec = (new_vec / np.linalg.norm(new_vec)).tolist()
+        status, wrote = http_json(port, "POST", "/v1/query", {
+            "request_type": "write", "query_name": "add",
+            "query": {"queries": [{"Query": {"name": "d", "steps": [{"AddN": {
+                "label": "Doc", "properties": [
+                    ["i", {"Expr": {"Param": "i"}}],
+                    ["emb", {"Expr": {"Param": "v"}}]]}}],
+                "condition": None}}], "returns": ["d"]},
+            "parameters": {"i": n_rows, "v": new_vec},
+            "parameter_types": {"i": "I64", "v": {"Array": "F32"}},
+        }, headers={"x-helix-await-durable": "true"})
+        check(status == 200, f"durable write: {status} {wrote}")
+        new_id = wrote["d"][0]["$id"]
+        replay_bodies = [{"q": q.tolist(), "k": K}
+                         for q in queries[:N_REPLAY]] + [{"q": new_vec, "k": K}]
+        want = singles[:N_REPLAY] + [http_json(port, "POST", "/v1/query/vfast",
+                                               replay_bodies[-1])]
+        check(want[-1][1]["hits"][0]["$id"] == new_id
+              and want[-1][1]["hits"][0]["$distance"] < TOL,
+              f"the written vector was not found: {want[-1]}")
+        gateway.stop(close_engine=False)
+        engine.persistence.close()   # no checkpoint: the write is WAL-only
+        for index in engine.vectors.indexes.values():
+            for part in index.partitions.values():
+                if part.matrix is not None:
+                    part.matrix.release_device()
+        gateway = engine = None
+        gc.collect()
+
+        # -- 3. the entry point
+        kernel_lib = kernels.library_path()
+        lib_mtime = kernel_lib.stat().st_mtime_ns if kernel_lib.exists() \
+            else None
+        snap_before = os.stat(snapshot).st_mtime_ns
+        err_path = os.path.join(tmp, "server.err")
+        sport = free_port()
+        cmd = [sys.executable, "-m", "helix_tpu_torch.server.http_server",
+               "--host", "127.0.0.1", "--port", str(sport), "--data-dir",
+               data_dir] + ([] if device.type == "cuda" else
+                            ["--device", "cpu"])
+        t0 = time.perf_counter()
+        with open(err_path, "w") as err, open(os.path.join(tmp, "server.out"),
+                                             "w") as sout:
+            proc = subprocess.Popen(cmd, cwd=os.path.dirname(
+                os.path.abspath(__file__)), stdout=sout, stderr=err)
+        got = None
+        while time.perf_counter() - t0 < SERVER_READY_S:
+            check(proc.poll() is None, "the entry point exited early: "
+                  + Path(err_path).read_text()[-3000:])
+            try:
+                got = http_json(sport, "POST", "/v1/query/vfast",
+                                replay_bodies[0])
+                break
+            except OSError:
+                time.sleep(0.5)
+        check(got is not None, "the entry point never answered")
+        out["entry_first_search_s"] = time.perf_counter() - t0
+        answers = [got] + [http_json(sport, "POST", "/v1/query/vfast", b)
+                           for b in replay_bodies[1:]]
+        for j, ((s_got, a), (s_want, b)) in enumerate(zip(answers, want)):
+            check(s_got == s_want == 200
+                  and [h["$id"] for h in a["hits"]]
+                  == [h["$id"] for h in b["hits"]]
+                  and np.allclose([h["$distance"] for h in a["hits"]],
+                                  [h["$distance"] for h in b["hits"]],
+                                  rtol=0, atol=1e-6),
+                  f"entry point request {j}: {a} vs in-process {b}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=HTTP_TIMEOUT)
+        proc = None
+        stderr = Path(err_path).read_text()
+        check(rc == 0, f"the entry point exited {rc} on SIGTERM: "
+              f"{stderr[-3000:]}")
+        check("native gateway unavailable" not in stderr,
+              f"the entry point fell back: {stderr[-3000:]}")
+        check(os.stat(snapshot).st_mtime_ns > snap_before,
+              "SIGTERM did not write the snapshot")
+        check(lib_mtime is None or kernel_lib.stat().st_mtime_ns == lib_mtime,
+              "the server process rebuilt the kernel library")
+        log(f"serve: the entry point ({' '.join(cmd[1:4])}) answered its "
+            f"first search {out['entry_first_search_s']:.1f} s after start; "
+            f"{N_REPLAY} requests and the read of the HTTP write equal to the "
+            "in-process answers (ids exact, $distance within 1e-6); SIGTERM: "
+            "exit 0, snapshot written; no native-gateway fallback")
+    finally:
+        if gateway is not None:
+            gateway.stop()
+        if proc is not None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 KERNELS = (
     ("bucket_scores", "helix_tpu_torch/csrc/bucket_scores.cu",
      "helix_tpu/ops/fused_topk.py:173"),
@@ -1330,6 +1788,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    start = time.perf_counter()
     device = torch.device("cuda", 0)
     card_line = card()
     log(f"card: {card_line}")
@@ -1350,9 +1809,17 @@ def main() -> int:
     native.load()
     log(f"native host library build + load: {time.perf_counter() - t:.1f} s")
 
-    kern = {"bucket_scores": kernel_phase(device)}
-    kern.update(quant_kernel_phase(device))
-    eng = engine_phase(device)
+    seconds: dict = {}
+
+    def timed(name, phase, *args):
+        t = time.perf_counter()
+        result = phase(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return result
+
+    kern = {"bucket_scores": timed("kernel", kernel_phase, device)}
+    kern.update(timed("quant kernels", quant_kernel_phase, device))
+    eng = timed("engine", engine_phase, device)
     # Derived from the two phases (kernel and fused step on the kernel
     # phase's random matrix, search_many on the engine's): where one
     # B=256 search_many goes.
@@ -1363,15 +1830,21 @@ def main() -> int:
         f"{eng['batch_ms'] - k1['fused_ms']:.3f} ms (search_many median "
         f"{eng['batch_ms']:.3f} ms)")
     gc.collect()  # the exact engine's host rows (cycles keep them alive)
-    graph_ops = graph_ops_phase(device, eng["first_rows"])
-    ladder = ladder_phase(device)
+    graph_ops = timed("graph ops", graph_ops_phase, device, eng["first_rows"])
+    ladder = timed("ladder", ladder_phase, device)
     gc.collect()
-    text = text_phase(device)
+    text = timed("text", text_phase, device)
+    gc.collect()
+    serve = timed("serve", serve_phase, device)
+    log(f"serve on {card_line}: " + json.dumps(serve, default=float))
+    log(f"phase seconds: {json.dumps(seconds)}, run so far "
+        f"{time.perf_counter() - start:.1f} s")
     log("device paths: " + json.dumps({
         "graph_ops": graph_ops, "engine_graph": eng["graph"],
         "ivf": {k: v for k, v in ladder.items() if k.startswith("ivf")},
         "text": text}, default=float))
-    launches = {"bucket_scores": eng["launches"], **ladder["launches"]}
+    launches = {"bucket_scores": eng["launches"] + serve["launches"],
+                **ladder["launches"]}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -12,11 +12,14 @@ otherwise; the CPU tests pass ``"cpu"``) and hands it to the vector
 indexes (with the residency ladder's knobs, ``hbm_budget_bytes`` and
 ``quant_candidates``), to the snapshot cache (the padded adjacency of
 device traversal) and to the text indexes (device BM25 postings).
-Knobs whose code paths are later slices of the port are refused with an
-error naming the slice, never silently ignored:
-``data_dir`` and ``snapshot_store`` (persistence), ``shard_threshold``
-and ``graph_shard_threshold`` (multi-GPU).  ``tests/test_torch_engine_copy.py``
-holds the rest of the code equal to the reference's.
+Disk mode (``data_dir``, ``snapshot_store``) and replica seeds are the
+reference's code: a snapshot holds host state only, and the first search
+after recovery rebuilds the device arrays.  Knobs whose code paths are
+later slices of the port are refused with an error naming the slice,
+never silently ignored: ``shard_threshold`` and
+``graph_shard_threshold`` (multi-GPU).
+``tests/test_torch_engine_copy.py`` holds the rest of the code equal to
+the reference's.
 
 Differs from the reference in:
 
@@ -24,10 +27,8 @@ Differs from the reference in:
 - ``Engine.__init__``: takes ``device`` and hands it down; refuses the
   knobs above; makes the traversal router, device first when the device
   is CUDA.
-- ``Engine.export_replica_seed``: raises NotImplementedError (persistence
-  slice).
-- ``Engine.load_replica_seed``: raises NotImplementedError (persistence
-  slice).
+- ``Engine.load_replica_seed``: the new snapshot cache gets the engine's
+  device.
 """
 
 from __future__ import annotations
@@ -138,8 +139,6 @@ class Engine:
                 "Engine(device='cuda') but torch sees no CUDA device; pass "
                 "device='cpu' to run on the host"
             )
-        _refuse("data_dir", data_dir, "persistence")
-        _refuse("snapshot_store", snapshot_store, "persistence")
         _refuse("shard_threshold", shard_threshold, "multi-GPU")
         _refuse("graph_shard_threshold", graph_shard_threshold, "multi-GPU")
         self.store = GraphStore()
@@ -171,6 +170,11 @@ class Engine:
 
         self.replication = ReplicationLog()
         self.persistence = None
+        if data_dir is not None:
+            from .persist import Persistence
+
+            self.persistence = Persistence(data_dir, snapshot_store=snapshot_store)
+            self.persistence.recover(self)
         self._writes_since_checkpoint = 0
         self.checkpoint_every = 10_000  # write batches between auto-checkpoints
         # Multi-chip graph scale-out (parallel/graph.py): traversals over
@@ -372,19 +376,39 @@ class Engine:
 
     def export_replica_seed(self) -> dict:
         """Consistent snapshot + replication watermark for seeding a
-        replica (persistence slice, not ported yet)."""
-        raise NotImplementedError(
-            "replica seeds are not ported yet: persistence slice, "
-            "ROADMAP.md Queue 1"
-        )
+        replica that is behind the primary's record ring.  Shared lock:
+        writes are exclusive, so the seq and the payload agree."""
+        from .persist import build_snapshot_payload
+
+        with self._rwlock.read():
+            return {
+                "seed_seq": self.replication.head_seq(),
+                # lineage captured ATOMICALLY with the watermark: the
+                # follower records this epoch after loading, so a
+                # primary restart mid-download cannot trigger a second
+                # full reseed of a seed that already matches the new
+                # lineage
+                "epoch": self.replication.epoch,
+                "payload": build_snapshot_payload(self),
+            }
 
     def load_replica_seed(self, seed: dict) -> None:
-        """Replace all engine state with a primary's seed snapshot
-        (persistence slice, not ported yet)."""
-        raise NotImplementedError(
-            "replica seeds are not ported yet: persistence slice, "
-            "ROADMAP.md Queue 1"
-        )
+        """Replace all engine state with a primary's seed snapshot and
+        align the local replication ring so cascaded replicas keep the
+        primary's sequence numbering."""
+        from .persist import restore_snapshot_payload
+        from .snapshot import SnapshotCache
+        from .store import GraphStore
+
+        with self._rwlock.write():
+            self.store = GraphStore()
+            self.snapshots = SnapshotCache(self.store, device=self.device)
+            self.vectors.indexes = {}
+            self.texts.indexes = {}
+            self.store.add_write_hook(self.vectors)
+            self.store.add_write_hook(self.texts)
+            restore_snapshot_payload(self, seed["payload"])
+            self.replication.reset_to(seed["seed_seq"] + 1)
 
     def checkpoint(self) -> None:
         """Snapshot + truncate the WAL.  Takes the writer lock so the

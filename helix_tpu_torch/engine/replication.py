@@ -24,9 +24,6 @@ the JAX package.  ``tests/test_torch_engine_copy.py`` holds the code equal to th
 reference's except for the functions listed here.
 
 Differs from the reference in:
-
-- ``_SeedUnpickler.loads``: raises NotImplementedError (persistence slice).
-- ``_SeedUnpickler.load``: raises NotImplementedError (persistence slice).
 """
 
 from __future__ import annotations
@@ -141,17 +138,15 @@ class _SeedUnpickler:
 
     @classmethod
     def loads(cls, data: bytes):
-        raise NotImplementedError(
-            "seed snapshots are not ported yet: persistence slice, "
-            "ROADMAP.md Queue 1"
-        )
+        from .persist import restricted_loads
+
+        return restricted_loads(data)
 
     @classmethod
     def load(cls, fileobj):
-        raise NotImplementedError(
-            "seed snapshots are not ported yet: persistence slice, "
-            "ROADMAP.md Queue 1"
-        )
+        from .persist import restricted_load
+
+        return restricted_load(fileobj)
 
 
 class Follower:

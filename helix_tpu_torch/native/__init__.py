@@ -1,26 +1,23 @@
-"""Native host components (C++), loaded via ctypes.
+"""Native runtime components (C++), loaded via ctypes.
 
 Port copy of ``helix_tpu/native/__init__.py`` with the C++ sources of
-the functions the port calls: ``rerank.cpp`` (the exact re-rank of the
-int8, int4 and host-IVF rungs) and ``bfs.cpp`` (the native traversal
-sweep).  ``hxjson.cpp`` and its headers ``fastdouble.h`` and
-``fastdouble_pow5.h`` are here for ``helix_tpu_torch.fastjson``.  The
-write-ahead log (``wal.cpp``) waits for the persistence slice, and the
-HTTP gateway and HA proxy (``gateway.cpp``, ``haproxy.cpp``) wait for
-the serving slice, so the library's source list and argtypes are cut
-to the two sources.  The library is compiled on first use with g++ into
-this directory (``libhxnative.so``, ignored by git), keyed on the source
+the functions the port calls: the write-ahead log (``wal.cpp``), the
+exact re-rank of the int8, int4 and host-IVF rungs (``rerank.cpp``),
+the native traversal sweep (``bfs.cpp``) and the HTTP gateway
+(``gateway.cpp``).  ``hxjson.cpp`` and its headers ``fastdouble.h`` and
+``fastdouble_pow5.h`` are here for ``helix_tpu_torch.fastjson`` (the
+gateway includes the headers too).  The HA proxy (``haproxy.cpp``)
+waits for the HA slice, so the library's source list and argtypes leave
+it out.  The library is compiled on first use with g++ into this
+directory (``libhxnative.so``, ignored by git), keyed on the source
 contents.  ``tests/test_torch_engine_copy.py`` holds the code equal to
 the reference's except for the functions listed here, and the C++
 sources byte for byte.
 
 Differs from the reference in:
 
-- ``_build_library``: compiles ``rerank.cpp`` and ``bfs.cpp`` only.
-- ``load``: declares the argtypes of ``hx_rerank`` and ``hx_bfs_khop``
-  only.
-- ``Wal``: dropped with ``wal.cpp``.
-- ``replay``: dropped with ``wal.cpp``.
+- ``_build_library``: compiles every source but ``haproxy.cpp``.
+- ``load``: declares no ``hxha_*`` argtypes.
 """
 
 from __future__ import annotations
@@ -64,13 +61,17 @@ def _cached(out: Path, key: str) -> bool:
 
 
 def _build_library(out: Path | None = None) -> Path:
-    sources = [_HERE / "rerank.cpp", _HERE / "bfs.cpp"]
+    sources = [
+        _HERE / "wal.cpp", _HERE / "rerank.cpp", _HERE / "bfs.cpp",
+        _HERE / "gateway.cpp",
+    ]
+    headers = [_HERE / "fastdouble.h", _HERE / "fastdouble_pow5.h"]
     out = out or _HERE / "libhxnative.so"
     cmd = [
         "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
         "-pthread", "-o", "", *[str(s) for s in sources],
     ]
-    key = source_key(sources, " ".join(cmd))
+    key = source_key(sources + headers, " ".join(cmd))
     if _cached(out, key):
         return out
     # temp + rename: never truncate a .so another process has mapped,
@@ -95,6 +96,26 @@ def load() -> ctypes.CDLL:
         if _LIB is not None:
             return _LIB
         lib = ctypes.CDLL(str(_build_library()))
+        lib.hxwal_open.restype = ctypes.c_void_p
+        lib.hxwal_open.argtypes = [ctypes.c_char_p]
+        lib.hxwal_append.restype = ctypes.c_int
+        lib.hxwal_append.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint32, ctypes.c_int,
+        ]
+        lib.hxwal_flush.restype = ctypes.c_int
+        lib.hxwal_flush.argtypes = [ctypes.c_void_p]
+        lib.hxwal_reset.restype = ctypes.c_int
+        lib.hxwal_reset.argtypes = [ctypes.c_void_p]
+        lib.hxwal_close.restype = None
+        lib.hxwal_close.argtypes = [ctypes.c_void_p]
+        lib.hxwal_reader_open.restype = ctypes.c_void_p
+        lib.hxwal_reader_open.argtypes = [ctypes.c_char_p]
+        lib.hxwal_reader_next.restype = ctypes.c_long
+        lib.hxwal_reader_next.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+        ]
+        lib.hxwal_reader_close.restype = None
+        lib.hxwal_reader_close.argtypes = [ctypes.c_void_p]
         f32p = ctypes.POINTER(ctypes.c_float)
         i64p = ctypes.POINTER(ctypes.c_int64)
         lib.hx_rerank.restype = None
@@ -112,8 +133,154 @@ def load() -> ctypes.CDLL:
             i64p, i32p, i32p, ctypes.c_int64,
             u8p, u8p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ]
+        # -- gateway ---------------------------------------------------
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        f64p = ctypes.POINTER(ctypes.c_double)
+        lib.hxgw_create.restype = ctypes.c_void_p
+        lib.hxgw_create.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p]
+        lib.hxgw_port.restype = ctypes.c_int
+        lib.hxgw_port.argtypes = [ctypes.c_void_p]
+        lib.hxgw_start.restype = ctypes.c_int
+        lib.hxgw_start.argtypes = [ctypes.c_void_p]
+        lib.hxgw_stop.restype = None
+        lib.hxgw_stop.argtypes = [ctypes.c_void_p]
+        lib.hxgw_destroy.restype = None
+        lib.hxgw_destroy.argtypes = [ctypes.c_void_p]
+        lib.hxgw_parked_count.restype = ctypes.c_longlong
+        lib.hxgw_parked_count.argtypes = [ctypes.c_void_p]
+        lib.hxgw_fast_route.restype = ctypes.c_int
+        lib.hxgw_fast_route.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_char_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+        ]
+        lib.hxgw_clear_fast_routes.restype = None
+        lib.hxgw_clear_fast_routes.argtypes = [ctypes.c_void_p]
+        lib.hxgw_next_vbatch.restype = ctypes.c_int
+        lib.hxgw_next_vbatch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint64), f32p, i32p, i32p,
+            ctypes.c_char_p,
+        ]
+        lib.hxgw_respond_vbatch.restype = ctypes.c_int
+        lib.hxgw_respond_vbatch.argtypes = [
+            ctypes.c_void_p, u64p, i32p, ctypes.c_int, ctypes.c_int,
+            u64p, f64p, i32p,
+        ]
+        lib.hxgw_next_general.restype = ctypes.c_longlong
+        lib.hxgw_next_general.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.hxgw_next_general_zc.restype = ctypes.c_longlong
+        lib.hxgw_next_general_zc.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.hxgw_release_body.restype = None
+        lib.hxgw_release_body.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+        lib.hxgw_respond.restype = ctypes.c_int
+        lib.hxgw_respond.argtypes = [
+            ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_longlong,
+        ]
+        lib.hxgw_respond_stream_start.restype = ctypes.c_int
+        lib.hxgw_respond_stream_start.argtypes = [
+            ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int, ctypes.c_char_p,
+        ]
+        lib.hxgw_stream_write.restype = ctypes.c_int
+        lib.hxgw_stream_write.argtypes = [
+            ctypes.c_void_p, ctypes.c_uint64, ctypes.c_char_p, ctypes.c_longlong,
+        ]
+        lib.hxgw_stream_end.restype = ctypes.c_int
+        lib.hxgw_stream_end.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+        lib.hxgw_request_alive.restype = ctypes.c_int
+        lib.hxgw_request_alive.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+        lib.hxgw_stats.restype = None
+        lib.hxgw_stats.argtypes = [ctypes.c_void_p, u64p, u64p, u64p]
+        # dynamic fast routes + blob cache (round 4)
+        lib.hxgw_skeleton.restype = ctypes.c_longlong
+        lib.hxgw_skeleton.argtypes = [
+            ctypes.c_char_p, ctypes.c_longlong, ctypes.c_char_p,
+            ctypes.c_longlong,
+        ]
+        lib.hxgw_dyn_vec_route.restype = ctypes.c_longlong
+        lib.hxgw_dyn_vec_route.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_longlong,
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_char_p,
+        ]
+        lib.hxgw_dyn_lookup_route.restype = ctypes.c_longlong
+        lib.hxgw_dyn_lookup_route.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_longlong,
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+        ]
+        lib.hxgw_clear_dyn_routes.restype = None
+        lib.hxgw_clear_dyn_routes.argtypes = [ctypes.c_void_p]
+        lib.hxgw_blob_epoch.restype = None
+        lib.hxgw_blob_epoch.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+        lib.hxgw_blob_put.restype = ctypes.c_int
+        lib.hxgw_blob_put.argtypes = [
+            ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64,
+            ctypes.c_char_p, ctypes.c_longlong,
+        ]
+        lib.hxgw_dyn_stats.restype = None
+        lib.hxgw_dyn_stats.argtypes = [ctypes.c_void_p, u64p, u64p, u64p]
         _LIB = lib
         return lib
+
+
+class Wal:
+    """Append handle over the native WAL."""
+
+    def __init__(self, path: str | Path):
+        self._lib = load()
+        self._handle = self._lib.hxwal_open(str(path).encode())
+        if not self._handle:
+            raise OSError(f"cannot open WAL at {path}")
+
+    def append(self, payload: bytes, sync: bool = True) -> None:
+        rc = self._lib.hxwal_append(
+            self._handle, payload, len(payload), 1 if sync else 0
+        )
+        if rc != 0:
+            raise OSError("WAL append failed")
+
+    def flush(self) -> None:
+        if self._lib.hxwal_flush(self._handle) != 0:
+            raise OSError("WAL flush failed")
+
+    def reset(self) -> None:
+        if self._lib.hxwal_reset(self._handle) != 0:
+            raise OSError("WAL reset failed")
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.hxwal_close(self._handle)
+            self._handle = None
+
+
+def replay(path: str | Path):
+    """Yield every intact record payload from a WAL file."""
+    lib = load()
+    handle = lib.hxwal_reader_open(str(path).encode())
+    if not handle:
+        return
+    try:
+        out = ctypes.c_void_p()
+        while True:
+            n = lib.hxwal_reader_next(handle, ctypes.byref(out))
+            if n < 0:
+                break
+            yield ctypes.string_at(out, n) if n else b""
+    finally:
+        lib.hxwal_reader_close(handle)
 
 
 def rerank(

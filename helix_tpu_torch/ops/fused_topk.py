@@ -18,8 +18,11 @@ against the JAX kernel.
 
 Deliberate differences from the reference:
 
-- ``approx_max_k`` becomes the exact ``torch.topk`` (on the CPU the
-  reference's ``approx_max_k`` is exact too).
+- ``approx_max_k`` becomes an exact top-k (on the CPU the reference's
+  ``approx_max_k`` is exact too).  It and the re-rank's ``lax.top_k``
+  select through :func:`~helix_tpu_torch.ops.distance._top_k`, a stable
+  sort that keeps ``lax.top_k``'s tie rule (the lower position first)
+  on CUDA too.
 - The denormal rule is explicit: a packed value with |v| < FLT_MIN
   becomes a signed zero, which is what the TPU and XLA's flush do to a
   row scoring exactly 0 (a zeroed tombstone row).  PyTorch on the CPU
@@ -33,7 +36,7 @@ import threading
 import torch
 
 from .. import kernels
-from .distance import require_fp32_matmul
+from .distance import _top_k, require_fp32_matmul
 
 # Row padding granularity and bucket width (same values and meaning as
 # the reference).
@@ -223,7 +226,7 @@ def fused_topk(
             chunk = torch.nn.functional.pad(chunk, (0, 0, 0, b_pad - b))
         qs16 = chunk.to(torch.bfloat16)
         vals = bucket_scores(xs16, qs16, n_valid).T       # [b_pad, buckets]
-        best_s, pos = torch.topk(vals, k_cand, dim=1)
+        best_s, pos = _top_k(vals, k_cand)
         arg = best_s.view(torch.int32) & (BUCKET - 1)
         best_i = pos * BUCKET + arg
         # Exact f32 re-rank of the candidates (ids clipped like
@@ -237,7 +240,7 @@ def fused_topk(
         # beyond that pads with overflow slots (supports_fused routes
         # that regime to topk_resident; this is the backstop).
         k_top = min(k, k_cand)
-        top_s, top_pos = torch.topk(exact, k_top, dim=1)
+        top_s, top_pos = _top_k(exact, k_top)
         top_i = torch.gather(best_i, 1, top_pos)
         filled = torch.gather(valid, 1, top_pos)
         top_i = torch.where(filled, top_i, -1)

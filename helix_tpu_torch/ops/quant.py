@@ -25,8 +25,9 @@ Two coarse paths, routed as the reference routes them
 
 Deliberate differences from the reference:
 
-- ``approx_max_k`` becomes an exact top-k (``_top_k`` in the unfused
-  path, ``torch.topk`` over the bucket winners, as ``fused_topk`` does).
+- ``approx_max_k`` becomes an exact top-k (``_top_k``, a stable sort
+  that keeps ``lax.top_k``'s tie rule on CUDA too, in the unfused path
+  and over the bucket winners, as ``fused_topk`` does).
 - The fused path serves a CUDA device with cosine rows, ``n >= TILE`` and
   ``dim_pad % 128 == 0``; the TPU's VMEM tile cap does not bind Hopper.
 - One device: the mesh search (``ShardedInt8Search``) is the multi-GPU
@@ -443,7 +444,7 @@ def fused_coarse(bucket_scores_fn, n_rows: int, qs: torch.Tensor, *,
             chunk = torch.nn.functional.pad(chunk, (0, 0, 0, b_pad - b))
         q_i8, q_scales = _quantize_queries(chunk)
         vals = bucket_scores_fn(q_i8).T                  # [b_pad, buckets]
-        best_s, pos = torch.topk(vals, k_cand, dim=1)
+        best_s, pos = _top_k(vals, k_cand)
         arg = best_s.view(torch.int32) & (BUCKET - 1)
         out_s.append(best_s[:b])
         out_q.append(q_scales[:b, None])

@@ -252,19 +252,31 @@ def test_multitenant_index_errors_and_empty_results_match():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("data_dir", "/nonexistent"),
-    ("snapshot_store", "s3://bucket"),
+    ("data_dir", "data"),
+    ("snapshot_store", "bucket"),
     ("hbm_budget_bytes", 1 << 30),
     ("quant_candidates", 64),
     ("shard_threshold", 1000),
     ("graph_shard_threshold", 1000),
 ])
-def test_port_engine_refuses_unported_knobs(knob, value):
-    """Knobs of unported slices raise; the residency ladder's two are
-    ported now and reach the vector manager."""
+def test_port_engine_refuses_unported_knobs(knob, value, tmp_path):
+    """Knobs of unported slices (multi-GPU) raise; the residency
+    ladder's two reach the vector manager, and the persistence slice's
+    two open the data dir and its object-store mirror."""
     if knob in ("hbm_budget_bytes", "quant_candidates"):
         engine = PortEngine(device="cpu", **{knob: value})
         assert getattr(engine.vectors, knob) == value
+        return
+    if knob in ("data_dir", "snapshot_store"):
+        store = f"file://{tmp_path / value}" if knob == "snapshot_store" \
+            else None
+        engine = PortEngine(device="cpu", data_dir=str(tmp_path / "data"),
+                            snapshot_store=store)
+        engine.checkpoint()
+        assert (tmp_path / "data" / "snapshot.bin").exists()
+        assert (store is None) == (engine.persistence.snapshot_store is None)
+        assert store is None or (tmp_path / value / "snapshot.bin").exists()
+        engine.close()
         return
     with pytest.raises(ValueError, match="ROADMAP.md"):
         PortEngine(device="cpu", **{knob: value})

@@ -1,18 +1,22 @@
 """Drift guard: the port's copied host modules stay the reference's code.
 
 ``helix_tpu_torch/engine/*.py`` are copies of ``helix_tpu/engine/*.py``,
-and ``helix_tpu_torch/{wire,telemetry,fastjson}.py`` and
-``helix_tpu_torch/native/__init__.py`` copies of the same files of
-``helix_tpu``.  Each copy's module docstring lists, after "Differs from
-the reference in:", the functions (``Class.method`` or module-level
-names) it changes, adds or drops.  Everything else must equal the
-reference once imports are resolved to absolute module names
-(``helix_tpu_torch`` read as ``helix_tpu``), so a later fix to the
-reference cannot silently miss the port.  ``helix_tpu_torch/dsl.py``
-copies a subset of ``helix_tpu/dsl.py``: each of its statements must
-equal one of the reference's, in the reference's order.  The C++
+and ``helix_tpu_torch/{wire,telemetry,fastjson,client}.py``,
+``helix_tpu_torch/native/__init__.py`` and ``helix_tpu_torch/server/``
+copies of the same files of ``helix_tpu``.  Each copy's module docstring
+lists, after "Differs from the reference in:", the functions
+(``Class.method`` or module-level names, ``__main__`` for the
+``if __name__ == "__main__":`` block) it changes, adds or drops.
+Everything else must equal the reference once imports are resolved to
+absolute module names (``helix_tpu_torch`` read as ``helix_tpu``), so a
+later fix to the reference cannot silently miss the port.
+``helix_tpu_torch/dsl.py`` copies ``helix_tpu/dsl.py`` statement for
+statement, in the reference's order.  ``PackedMatrix``'s host methods
+(growth, appends, overwrites, query preparation) in
+``helix_tpu_torch/ops/distance.py`` equal the reference's.  The C++
 sources under ``helix_tpu_torch/native/`` equal the reference's byte
-for byte.  No module of the port imports anything of ``helix_tpu``.
+for byte.  No module of the port, nor ``chip_smoke.py`` or
+``chip_ab.py``, imports anything of ``helix_tpu`` or ``jax``.
 """
 
 import ast
@@ -23,8 +27,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = [
-    "batching", "engine", "errors", "exec", "expr", "frame", "replication",
-    "rwlock", "snapshot", "store", "text", "values", "vector",
+    "batching", "engine", "errors", "exec", "expr", "frame", "objstore",
+    "persist", "replication", "rwlock", "snapshot", "store", "text",
+    "values", "vector",
 ]
 
 
@@ -87,6 +92,21 @@ class _Normalise(ast.NodeTransformer):
         name = getattr(node.target, "id", None)
         return None if not self.scope and name in self.drop else node
 
+    def visit_If(self, node):
+        if not self.scope and _is_main(node) and "__main__" in self.drop:
+            return None
+        self.generic_visit(node)
+        return node
+
+
+def _is_main(node: ast.stmt) -> bool:
+    """``if __name__ == "__main__":``"""
+    test = getattr(node, "test", None)
+    return (isinstance(node, ast.If) and isinstance(test, ast.Compare)
+            and getattr(test.left, "id", None) == "__name__"
+            and [getattr(c, "value", None) for c in test.comparators]
+            == ["__main__"])
+
 
 def _definitions(tree: ast.Module) -> set[str]:
     names = set()
@@ -102,6 +122,8 @@ def _definitions(tree: ast.Module) -> set[str]:
             targets = node.targets if isinstance(node, ast.Assign) \
                 else [node.target]
             names |= {t.id for t in targets if isinstance(t, ast.Name)}
+        if _is_main(node):
+            names.add("__main__")
     return names
 
 
@@ -142,7 +164,13 @@ HOST_MODULES = {
     "wire": ("wire.py", ""),
     "telemetry": ("telemetry.py", ""),
     "fastjson": ("fastjson.py", ""),
+    "client": ("client.py", ""),
     "native": ("native/__init__.py", ".native"),
+    "server": ("server/__init__.py", ".server"),
+    "server.routes": ("server/routes.py", ".server"),
+    "server.http_server": ("server/http_server.py", ".server"),
+    "server.native_gateway": ("server/native_gateway.py", ".server"),
+    "server.mcp": ("server/mcp.py", ".server"),
 }
 
 
@@ -164,15 +192,45 @@ def test_dsl_subset_matches_reference():
             f"dsl: statement {i} of the port is not the reference's (or is "
             f"out of its order):\n{stmt}")
         at = ref.index(stmt, at) + 1
+    assert len(port) == len(ref), "dsl: the port copies the whole module"
     names = _definitions(ast.parse(
         (ROOT / "helix_tpu_torch" / "dsl.py").read_text()))
+    # the engine, the client (DynamicQueryRequest), MCP (g, read_batch)
+    # and the package's re-exports
     used = {"_require_finite", "DateTime", "millis_to_rfc3339",
-            "PropertyValue", "load_query_bundle"}
-    assert used <= names, f"dsl: the port's engine needs {used - names}"
+            "PropertyValue", "load_query_bundle", "DynamicQueryRequest",
+            "g", "read_batch", "write_batch", "define_queries"}
+    assert used <= names, f"dsl: the port needs {used - names}"
 
 
-NATIVE_SOURCES = ["rerank.cpp", "bfs.cpp", "hxjson.cpp", "fastdouble.h",
-                  "fastdouble_pow5.h"]
+# PackedMatrix's host code: growth, appends, overwrites, query prep.
+PACKED_MATRIX_METHODS = [
+    "_start_background_grow", "_swap_grown", "_ensure_rows",
+    "_maybe_start_grow", "append", "extend", "overwrite", "prepare_query",
+    "prepare_queries",
+]
+
+
+def _methods(path: Path, package: str, cls: str) -> dict[str, str]:
+    tree = _Normalise(package, set()).visit(ast.parse(path.read_text()))
+    body = next(n for n in tree.body
+                if isinstance(n, ast.ClassDef) and n.name == cls).body
+    return {f.name: ast.dump(f) for f in body
+            if isinstance(f, ast.FunctionDef)}
+
+
+@pytest.mark.parametrize("method", PACKED_MATRIX_METHODS)
+def test_packed_matrix_host_methods_match_reference(method):
+    ref = _methods(ROOT / "helix_tpu" / "ops" / "distance.py",
+                   "helix_tpu.ops", "PackedMatrix")
+    port = _methods(ROOT / "helix_tpu_torch" / "ops" / "distance.py",
+                    "helix_tpu_torch.ops", "PackedMatrix")
+    assert port[method] == ref[method], \
+        f"PackedMatrix.{method} drifted from the reference"
+
+
+NATIVE_SOURCES = ["wal.cpp", "rerank.cpp", "bfs.cpp", "gateway.cpp",
+                  "hxjson.cpp", "fastdouble.h", "fastdouble_pow5.h"]
 
 
 @pytest.mark.parametrize("source", NATIVE_SOURCES)
@@ -194,7 +252,7 @@ def _imports(path: Path, package: str) -> list[str]:
 
 PORT_FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "helix_tpu_torch").rglob("*.py")
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py", "chip_ab.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES)

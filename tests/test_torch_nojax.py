@@ -7,8 +7,11 @@ imported, then imports every module of ``helix_tpu_torch`` (and
 the same under device-memory budgets that put the index on the int8
 rung (its host re-rank is the port's ``native``) and on the host-IVF
 rung, then a traversal on the device path, a BM25 search on device
-postings and a parse through the port's ``fastjson``.  At the end no
-``helix_tpu`` module (the package or any of its submodules) may be in
+postings, a parse through the port's ``fastjson``, and the serving
+slice: an engine on a data dir writes and closes (checkpoint + WAL), a
+``NativeGateway`` recovers it, installs a bundle over HTTP and answers a
+stored vector route on the fast path.  At the end no ``helix_tpu``
+module (the package or any of its submodules) may be in
 ``sys.modules``.
 """
 
@@ -119,6 +122,47 @@ from helix_tpu_torch import fastjson
 parsed = fastjson.loads(b'{"v": [' + b", ".join([b"0.5"] * 40) + b"]}",
                         fast_arrays=True)
 assert list(parsed["v"]) == [0.5] * 40, parsed
+
+import json
+import shutil
+import tempfile
+import urllib.request
+
+from helix_tpu_torch.server.native_gateway import NativeGateway
+
+data_dir = tempfile.mkdtemp()
+try:
+    disk = Engine(device="cpu", data_dir=data_dir)
+    write_and_read(disk)
+    disk.close()
+    gw = NativeGateway(host="127.0.0.1", port=0, data_dir=data_dir,
+                       device="cpu")
+    gw.start()
+    try:
+        def post(path, body):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{gw.port}{path}",
+                data=json.dumps(body).encode(), method="POST",
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return json.loads(resp.read())
+
+        post("/v1/bundle", {"version": 5, "read_routes": {"vs": {
+            "queries": [{"Query": {"name": "r", "steps": [
+                {"VectorSearchNodes": {"label": "Doc", "property": "emb",
+                                       "query_vector": {"Expr": {"Param": "q"}},
+                                       "k": {"Expr": {"Param": "k"}}}},
+                {"ValueMap": ["$id", "$distance"]}], "condition": None}}],
+            "returns": ["r"]}}, "read_parameters": {"vs": [
+                {"name": "q", "ty": {"Array": "F32"}}, {"name": "k", "ty": "I64"}]},
+            "write_routes": {}, "write_parameters": {}})
+        hits = post("/v1/query/vs", {"q": rows[42].tolist(), "k": 5})["r"]
+        assert hits[0]["$id"] == 43 and len(hits) == 5, hits
+        assert gw.stats()["fast_requests"] == 1, gw.stats()
+    finally:
+        gw.stop()
+finally:
+    shutil.rmtree(data_dir)
 assert sys.modules["jax"] is None
 assert not [m for m in sys.modules if m.startswith("jax.")]
 loaded = [m for m in sys.modules
