@@ -67,10 +67,19 @@ Phases, each failing the run on a bad check:
    (recovery and the first search after it timed), installs a bundle over
    HTTP and answers 128 single requests (p50 / p90) and 4,096 requests
    with 256 in flight (QPS) on the vector fast path into kernel 1, held
-   to a numpy oracle, ``fast_requests`` and kernel 1's launch count;
-   then ``python3 -m helix_tpu_torch.server.http_server`` recovers the
-   same dir (the HTTP write from the WAL), answers alike, and exits 0 on
-   SIGTERM after its checkpoint.
+   to a numpy oracle, ``fast_requests`` and kernel 1's launch count,
+   then takes a durable HTTP write that lives only in the WAL.
+9. Cluster (``cluster_phase``): ``python -m helix_tpu_torch.cli`` makes a
+   project of a primary and two replicas; ``start primary --disk``
+   recovers the serve phase's data dir (the write from the WAL) and
+   answers as the in-process gateway did, the two replicas seed from
+   it, and the native HA proxy (``HAFront``) spreads the same reads over
+   them, answered alike, while the card's free memory shows both
+   replicas' index copies; a durable write through the front reaches
+   both replicas; a replica's engine is SIGKILLed under load and its
+   supervisor restarts it; ``stop`` ends every process after the
+   primary's checkpoint.  Kernel 1 runs in those server processes, so
+   its launch count holds only the in-process phases.
 
 Kernel 1's phase also checks the tie rule (rows duplicated into
 different buckets come back lowest position first on 5 calls).
@@ -1376,9 +1385,7 @@ FAST_STEPS = [SEARCH_STEPS[0], {"ValueMap": ["$id", "$distance"]}]
 N_LOAD = 4096          # requests of the load step
 LOAD_CONNECTIONS = 32  # keep-alive connections of the load step ...
 LOAD_WINDOW = 8        # ... each with this many requests pipelined
-N_REPLAY = 64          # requests the entry point must answer alike
 HTTP_TIMEOUT = 120
-SERVER_READY_S = 600
 
 
 def serve_bundle() -> dict:
@@ -1511,7 +1518,30 @@ def check_hits(engine, queries: np.ndarray, answers: list, what: str,
     return {"recall": recall, "max_dist_err": worst}
 
 
-def serve_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
+def unit_vector(seed: int) -> list:
+    v = np.random.default_rng(seed).normal(size=DIM)
+    return (v / np.linalg.norm(v)).tolist()
+
+
+def durable_write(port: int, i: int, vec: list) -> int:
+    """One ``AddN`` of a ``Doc`` with ``i`` and ``vec`` over HTTP, acked
+    once durable; returns the new node's id."""
+    status, wrote = http_json(port, "POST", "/v1/query", {
+        "request_type": "write", "query_name": "add",
+        "query": {"queries": [{"Query": {"name": "d", "steps": [{"AddN": {
+            "label": "Doc", "properties": [
+                ["i", {"Expr": {"Param": "i"}}],
+                ["emb", {"Expr": {"Param": "v"}}]]}}],
+            "condition": None}}], "returns": ["d"]},
+        "parameters": {"i": i, "v": vec},
+        "parameter_types": {"i": "I64", "v": {"Array": "F32"}},
+    }, headers={"x-helix-await-durable": "true"})
+    check(status == 200, f"durable write: {status} {wrote}")
+    return wrote["d"][0]["$id"]
+
+
+def serve_phase(device: torch.device,
+                n_rows: int = N_ROWS) -> tuple[dict, dict]:
     """The HTTP front door on the exact cell, from disk.
 
     1. ``Engine(device, data_dir)`` ingests ``n_rows`` through ``ForEach
@@ -1528,17 +1558,13 @@ def serve_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
        no other kernel); no request may reach the interpreter fallback.  A durable HTTP write and a read
        that finds it close the step, which then stops the gateway
        without a checkpoint: the write lives only in the WAL.
-    3. ``python3 -m helix_tpu_torch.server.http_server --data-dir`` (the
-       default device; ``--device cpu`` in a CPU rehearsal) recovers the
-       same dir; seconds to its first answered search; ``N_REPLAY`` of
-       the same requests and the new vector's read answer as in step 2;
-       no "native gateway unavailable" on stderr; SIGTERM exits 0 after
-       writing the snapshot; the kernel library was not rebuilt."""
+
+    Returns the phase's numbers and what the cluster phase takes over:
+    the data dir (not deleted), the queries and the in-process answers
+    to each of them and to the new vector's read."""
     import shutil
-    import signal
     import tempfile
 
-    from helix_tpu_torch import kernels
     from helix_tpu_torch.server.native_gateway import NativeGateway
 
     data, queries = make_dataset(n_rows, DIM, N_PROBE + N_LOAD)
@@ -1546,7 +1572,7 @@ def serve_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
     data_dir = os.path.join(tmp, "data")
     snapshot = os.path.join(data_dir, "snapshot.bin")
     out: dict = {}
-    gateway = proc = None
+    gateway = None
     try:
         engine = new_engine(device, data_dir=data_dir)
         out["ingest_s"] = ingest(engine, data, 0, n_rows)
@@ -1671,27 +1697,13 @@ def serve_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
             f"load {len(batches)} of mean {out['load_batch_mean']:.1f} max "
             f"{out['load_batch_max']}")
 
-        new_vec = np.random.default_rng(43).normal(size=DIM)
-        new_vec = (new_vec / np.linalg.norm(new_vec)).tolist()
-        status, wrote = http_json(port, "POST", "/v1/query", {
-            "request_type": "write", "query_name": "add",
-            "query": {"queries": [{"Query": {"name": "d", "steps": [{"AddN": {
-                "label": "Doc", "properties": [
-                    ["i", {"Expr": {"Param": "i"}}],
-                    ["emb", {"Expr": {"Param": "v"}}]]}}],
-                "condition": None}}], "returns": ["d"]},
-            "parameters": {"i": n_rows, "v": new_vec},
-            "parameter_types": {"i": "I64", "v": {"Array": "F32"}},
-        }, headers={"x-helix-await-durable": "true"})
-        check(status == 200, f"durable write: {status} {wrote}")
-        new_id = wrote["d"][0]["$id"]
-        replay_bodies = [{"q": q.tolist(), "k": K}
-                         for q in queries[:N_REPLAY]] + [{"q": new_vec, "k": K}]
-        want = singles[:N_REPLAY] + [http_json(port, "POST", "/v1/query/vfast",
-                                               replay_bodies[-1])]
-        check(want[-1][1]["hits"][0]["$id"] == new_id
-              and want[-1][1]["hits"][0]["$distance"] < TOL,
-              f"the written vector was not found: {want[-1]}")
+        new_vec = unit_vector(43)
+        new_id = durable_write(port, n_rows, new_vec)
+        want = http_json(port, "POST", "/v1/query/vfast",
+                         {"q": new_vec, "k": K})
+        check(want[1]["hits"][0]["$id"] == new_id
+              and want[1]["hits"][0]["$distance"] < TOL,
+              f"the written vector was not found: {want}")
         gateway.stop(close_engine=False)
         engine.persistence.close()   # no checkpoint: the write is WAL-only
         for index in engine.vectors.indexes.values():
@@ -1700,78 +1712,491 @@ def serve_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
                     part.matrix.release_device()
         gateway = engine = None
         gc.collect()
-
-        # -- 3. the entry point
-        kernel_lib = kernels.library_path()
-        lib_mtime = kernel_lib.stat().st_mtime_ns if kernel_lib.exists() \
-            else None
-        snap_before = os.stat(snapshot).st_mtime_ns
-        err_path = os.path.join(tmp, "server.err")
-        sport = free_port()
-        cmd = [sys.executable, "-m", "helix_tpu_torch.server.http_server",
-               "--host", "127.0.0.1", "--port", str(sport), "--data-dir",
-               data_dir] + ([] if device.type == "cuda" else
-                            ["--device", "cpu"])
-        t0 = time.perf_counter()
-        with open(err_path, "w") as err, open(os.path.join(tmp, "server.out"),
-                                             "w") as sout:
-            proc = subprocess.Popen(cmd, cwd=os.path.dirname(
-                os.path.abspath(__file__)), stdout=sout, stderr=err)
-        got = None
-        while time.perf_counter() - t0 < SERVER_READY_S:
-            check(proc.poll() is None, "the entry point exited early: "
-                  + Path(err_path).read_text()[-3000:])
-            try:
-                got = http_json(sport, "POST", "/v1/query/vfast",
-                                replay_bodies[0])
-                break
-            except OSError:
-                time.sleep(0.5)
-        check(got is not None, "the entry point never answered")
-        out["entry_first_search_s"] = time.perf_counter() - t0
-        answers = [got] + [http_json(sport, "POST", "/v1/query/vfast", b)
-                           for b in replay_bodies[1:]]
-        for j, ((s_got, a), (s_want, b)) in enumerate(zip(answers, want)):
-            check(s_got == s_want == 200
-                  and [h["$id"] for h in a["hits"]]
-                  == [h["$id"] for h in b["hits"]]
-                  and np.allclose([h["$distance"] for h in a["hits"]],
-                                  [h["$distance"] for h in b["hits"]],
-                                  rtol=0, atol=1e-6),
-                  f"entry point request {j}: {a} vs in-process {b}")
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=HTTP_TIMEOUT)
-        proc = None
-        stderr = Path(err_path).read_text()
-        check(rc == 0, f"the entry point exited {rc} on SIGTERM: "
-              f"{stderr[-3000:]}")
-        check("native gateway unavailable" not in stderr,
-              f"the entry point fell back: {stderr[-3000:]}")
-        check(os.stat(snapshot).st_mtime_ns > snap_before,
-              "SIGTERM did not write the snapshot")
-        check(lib_mtime is None or kernel_lib.stat().st_mtime_ns == lib_mtime,
-              "the server process rebuilt the kernel library")
-        log(f"serve: the entry point ({' '.join(cmd[1:4])}) answered its "
-            f"first search {out['entry_first_search_s']:.1f} s after start; "
-            f"{N_REPLAY} requests and the read of the HTTP write equal to the "
-            "in-process answers (ids exact, $distance within 1e-6); SIGTERM: "
-            "exit 0, snapshot written; no native-gateway fallback")
+        handoff = {
+            "tmp": tmp, "data_dir": data_dir, "n_rows": n_rows,
+            "queries": queries,
+            "hits": [a["hits"] for _, a in singles]
+            + [json.loads(body)["hits"] for _, body in raw],
+            "new_vec": new_vec, "new_hits": want[1]["hits"],
+            "in_process": {key: out[key] for key in ("p50_ms", "p90_ms",
+                                                     "qps")},
+        }
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
     finally:
         if gateway is not None:
             gateway.stop()
-        if proc is not None:
-            proc.kill()
-            proc.wait()
+    return out, handoff
+
+
+# --------------------------------------------------------------- cluster
+
+N_REPLAY = 64       # reads the CLI-started primary must answer first
+N_FAILOVER = 2048   # reads through the front around a replica's restart
+READY_S = 600       # HELIX_READY_TIMEOUT_S of the cluster's starts
+SEED_S = 600        # bound on a replica's seed, and on its re-seed
+STOP_S = 300        # bound on the primary's exit after stop
+LANDED_S = 30       # bound on a write reaching a replica, and on a probe flap
+REPLICAS = ("replica1", "replica2")
+
+
+def cli(proj: str, *args: str, ok: bool = True) -> tuple[int, str, float]:
+    """``python -m helix_tpu_torch.cli <args>`` in the project: exit code,
+    output and seconds; a nonzero exit fails the run unless ``ok`` is
+    False."""
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, HELIX_READY_TIMEOUT_S=str(READY_S),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "helix_tpu_torch.cli", *args],
+                          cwd=proj, env=env, capture_output=True, text=True,
+                          timeout=READY_S + 120)
+    seconds = time.perf_counter() - t
+    text = proc.stdout + proc.stderr
+    check(not ok or proc.returncode == 0,
+          f"cli {' '.join(args)} exited {proc.returncode}: {text[-3000:]}")
+    return proc.returncode, text, seconds
+
+
+def wait_for(pred, seconds: float, what: str, every: float = 0.2) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < seconds,
+              f"{what}: not within {seconds} s")
+        time.sleep(every)
+    return time.perf_counter() - t0
+
+
+def health(port: int) -> dict | None:
+    import http.client
+
+    try:
+        status, out = http_json(port, "GET", "/v1/health")
+    except (OSError, http.client.HTTPException):
+        return None
+    return out if status == 200 else None
+
+
+def pid_in(path: Path) -> int | None:
+    try:
+        return int(path.read_text().strip())
+    except (OSError, ValueError):
+        return None
+
+
+def alive(pid: int) -> bool:
+    from helix_tpu_torch.cli.main import _process_gone
+
+    return not _process_gone(pid)
+
+
+def rss_gib(pid: int) -> float:
+    for line in Path(f"/proc/{pid}/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / (1 << 20)
+    return float("nan")
+
+
+def proxy_stats(front) -> dict:
+    import ctypes
+
+    values = [ctypes.c_uint64() for _ in range(3)]
+    front._native.hxha_stats(front._px, *map(ctypes.byref, values))
+    return dict(zip(("proxied", "retries", "control"),
+                    (v.value for v in values)))
+
+
+def same_hits(got: list, want: list) -> bool:
+    """Ids exact, ``$distance`` within 1e-6."""
+    return ([h["$id"] for h in got] == [h["$id"] for h in want]
+            and np.allclose([h["$distance"] for h in got],
+                            [h["$distance"] for h in want], rtol=0, atol=1e-6))
+
+
+def read_all(port: int, handoff: dict, what: str) -> dict:
+    """The serve phase's reads again at ``port``: ``N_PROBE`` sequential
+    ``vfast`` requests on one keep-alive connection (p50 / p90), then
+    ``N_LOAD`` with ``LOAD_CONNECTIONS * LOAD_WINDOW`` in flight (QPS);
+    each answer must equal the in-process answer to its query."""
+    import http.client
+
+    queries, hits = handoff["queries"], handoff["hits"]
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT)
+    latencies = []
+    for j, q in enumerate(queries[:N_PROBE]):
+        t = time.perf_counter()
+        status, got = http_json(port, "POST", "/v1/query/vfast",
+                                {"q": q.tolist(), "k": K}, conn=conn)
+        latencies.append((time.perf_counter() - t) * 1e3)
+        check(status == 200 and same_hits(got["hits"], hits[j]),
+              f"{what}: single {j}: {status} {str(got)[:300]} vs in-process "
+              f"{hits[j]}")
+    conn.close()
+    seconds = check_load(port, handoff, N_PROBE, N_LOAD, what)
+    return {"p50_ms": float(np.percentile(latencies, 50)),
+            "p90_ms": float(np.percentile(latencies, 90)),
+            "qps": N_LOAD / seconds}
+
+
+def check_load(port: int, handoff: dict, first: int, n: int,
+               what: str) -> float:
+    """``n`` pipelined ``vfast`` reads of the queries from ``first`` on,
+    each equal to its in-process answer; returns the wall seconds."""
+    queries, hits = handoff["queries"], handoff["hits"]
+    seconds, raw = http_load(port, [{"q": q.tolist(), "k": K}
+                                    for q in queries[first:first + n]],
+                             LOAD_CONNECTIONS, LOAD_WINDOW)
+    for j, (status, body) in enumerate(raw):
+        check(status == 200 and same_hits(json.loads(body)["hits"],
+                                           hits[first + j]),
+              f"{what}: request {first + j}: {status} {body[:300]!r}")
+    return seconds
+
+
+def cluster_phase(device: torch.device, handoff: dict) -> dict:
+    """The serve phase's data dir as the primary of a three-process
+    cluster started by the CLI, behind the native HA proxy.
+
+    1. ``python -m helix_tpu_torch.cli init`` makes a project with
+       instances ``primary`` and (``add``) ``replica1``, ``replica2``;
+       the serve bundle is its ``queries.json``, which ``start`` deploys;
+       the serve phase's data dir becomes ``.helix/primary/data``.
+    2. ``start primary --disk --restart unless-stopped`` (the default
+       device; ``--device cpu`` in a CPU rehearsal) with
+       ``HELIX_READY_TIMEOUT_S`` at ``READY_S``, timed: it recovers the
+       1M rows (the serve phase's HTTP write from the WAL) and must
+       answer ``N_REPLAY`` ``vfast`` reads and the written vector's read
+       as the in-process gateway did (ids exact, ``$distance`` within
+       1e-6); then the serve phase's singles and load straight to it.
+    3. ``start replicaN --replica-of <primary> --restart unless-stopped``
+       for both; a replica answers the readiness probe before its seed
+       lands, so each is waited for until its ``/v1/health`` nodes and
+       edges equal the primary's (seconds from its start).
+    4. ``HAFront`` over the three, in this process, on the native proxy
+       (``_px`` set: the Python fallback fails the run).  The bundle is
+       deployed again through it (its broadcast arms each replica's fast
+       path, which the deploy at start, before the seed, could not: the
+       gateway re-checks only every 5 s).  The singles and
+       the load through it answer as in process; the card's free memory
+       must fall across them by at least both replicas' device copies
+       (bf16 + f32 rows: no replica searched before); a durable write
+       through the front must then be found first by each replica.
+    5. SIGKILL ``replica1``'s engine while ``N_FAILOVER`` reads with
+       ``LOAD_CONNECTIONS * LOAD_WINDOW`` in flight go through the front
+       (once a quarter is answered): all answer alike and the proxy's
+       retry count rises; its supervisor restarts it and it re-seeds
+       (bounded).  How long the front reported it healthy before its seed
+       landed is printed; no read is checked in that window.  Then
+       ``N_FAILOVER`` reads answer alike, and both replicas come up
+       healthy in ``/v1/ha`` (bounded: a probe that times out marks a
+       replica down until the next one answers).
+    6. ``stop`` each instance.  The primary's ``stop`` may return 1 while
+       its 1M checkpoint runs past the CLI's 10 s wait: its pid is then
+       waited for and ``stop`` called again (a second SIGTERM during the
+       checkpoint is not sent).  The snapshot must be newer, no server
+       may be left, no log may name the native gateway's fallback, and
+       the kernel library must not have been rebuilt.
+
+    Kernel 1 launches in the three server processes, so its launch
+    count (the ``kernels`` line) holds the in-process phases only; the
+    cluster's launches show in the memory check and in the answers,
+    which only kernel 1's exact path gives equal to the in-process
+    gateway's.  Prints each step's seconds, the card memory it added
+    and each server's resident host memory with the card's name and
+    power limit."""
+    import shutil
+    import signal
+    import threading
+
+    from helix_tpu_torch import kernels
+    from helix_tpu_torch.server.ha_front import HAFront
+
+    on_card = device.type == "cuda"
+    card_line = card() if on_card else "cpu"
+    tmp, n_rows = handoff["tmp"], handoff["n_rows"]
+    proj = os.path.join(tmp, "proj")
+    names = ("primary",) + REPLICAS
+    ports = dict(zip(names, free_ports(len(names))))
+    dev = [] if on_card else ["--device", "cpu"]
+
+    def state(name: str) -> Path:
+        return Path(proj, ".helix", name)
+
+    def port_of(name: str) -> int:
+        return int((state(name) / "server.port").read_text())
+
+    pids: set = set()
+
+    def note_pids() -> dict:
+        engines = {}
+        for name in names:
+            for file in ("server.pid", "engine.pid"):
+                pid = pid_in(state(name) / file)
+                if pid is not None:
+                    pids.add(pid)
+                    if file == "engine.pid":
+                        engines[name] = pid
+        return engines
+
+    mem: list = []
+
+    def card_free(step: str) -> None:
+        if on_card:
+            mem.append((step, torch.cuda.mem_get_info(device)[0]))
+
+    out: dict = {}
+    front = None
+    try:
+        if on_card:
+            mode = subprocess.run(
+                ["nvidia-smi", "--query-gpu=compute_mode",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                check=True).stdout.strip()
+            log(f"cluster: compute mode {mode}")
+            check(mode == "Default", f"compute mode {mode}: three server "
+                  "processes must share the card")
+            torch.cuda.empty_cache()
+        # -- 1. project
+        cli(tmp, "init", "--path", proj, "--instance", "primary", "--port",
+            str(ports["primary"]))
+        for name in REPLICAS:
+            cli(proj, "add", name, "--port", str(ports[name]))
+        Path(proj, "db").mkdir(exist_ok=True)
+        Path(proj, "db", "queries.json").write_text(json.dumps(serve_bundle()))
+        state("primary").mkdir(parents=True)
+        shutil.move(handoff["data_dir"], state("primary") / "data")
+        snapshot = state("primary") / "data" / "snapshot.bin"
+        snap_before = snapshot.stat().st_mtime_ns
+        lib = kernels.library_path()
+        lib_mtime = lib.stat().st_mtime_ns if lib.exists() else None
+
+        # -- 2. the primary through the CLI
+        card_free("before")
+        _, text, out["primary_start_s"] = cli(
+            proj, "start", "primary", "--disk", "--restart", "unless-stopped",
+            *dev)
+        check("deployed query bundle" in text, f"start primary: {text}")
+        note_pids()
+        card_free("primary started")
+        pport = port_of("primary")
+        queries, hits = handoff["queries"], handoff["hits"]
+        for j in range(N_REPLAY):
+            status, got = http_json(pport, "POST", "/v1/query/vfast",
+                                    {"q": queries[j].tolist(), "k": K})
+            check(status == 200 and same_hits(got["hits"], hits[j]),
+                  f"CLI primary: read {j}: {status} {str(got)[:300]}")
+        status, got = http_json(pport, "POST", "/v1/query/vfast",
+                                {"q": handoff["new_vec"], "k": K})
+        check(status == 200 and same_hits(got["hits"], handoff["new_hits"]),
+              f"CLI primary: the WAL-only write's read: {got}")
+        card_free("primary searched")
+        out["direct"] = read_all(pport, handoff, "CLI primary, direct")
+        log(f"cluster: `start primary --disk` ready and deployed in "
+            f"{out['primary_start_s']:.1f} s on {card_line}; {N_REPLAY} "
+            "reads and the WAL-only write's read equal to the in-process "
+            "gateway's")
+
+        # -- 3. replicas
+        primary_url = f"http://127.0.0.1:{pport}"
+        size = health(pport)
+        want_size = (size["nodes"], size["edges"])
+
+        def seeded(port: int) -> bool:
+            h = health(port)
+            return h is not None and (h["nodes"], h["edges"]) == want_size
+
+        started = {}
+        for name in REPLICAS:
+            started[name] = time.perf_counter()
+            _, _, out[f"{name}_start_s"] = cli(
+                proj, "start", name, "--replica-of", primary_url,
+                "--restart", "unless-stopped", *dev)
+        note_pids()
+        for name in REPLICAS:
+            wait_for(lambda: seeded(port_of(name)), SEED_S, f"{name}'s seed")
+            out[f"{name}_seed_s"] = time.perf_counter() - started[name]
+        card_free("replicas seeded")
+        log(f"cluster: replicas started in "
+            f"{out['replica1_start_s']:.1f} / {out['replica2_start_s']:.1f} "
+            f"s, seeded {out['replica1_seed_s']:.1f} / "
+            f"{out['replica2_seed_s']:.1f} s after their starts "
+            f"({want_size[0]} nodes) on {card_line}")
+
+        # -- 4. the HA front
+        front = HAFront(primary_url, [f"http://127.0.0.1:{port_of(n)}"
+                                      for n in REPLICAS],
+                        host="127.0.0.1", port=0)
+        front.start()
+        check(front._px is not None,
+              "the HA front fell back to its Python server")
+        # `start` deployed the bundle before the seed brought the index,
+        # so a replica's gateway has not armed the route's fast path
+        # (it re-checks every 5 s); the front's broadcast arms it now
+        status, deployed = http_json(front.port, "POST", "/v1/bundle",
+                                     serve_bundle())
+        check(status == 200 and "replica_errors" not in deployed,
+              f"bundle through the front: {status} {deployed}")
+        stats0 = proxy_stats(front)
+        card_free("front started")
+        out["front"] = read_all(front.port, handoff, "through the front")
+        card_free("front load")
+        stats1 = proxy_stats(front)
+        check(stats1["proxied"] - stats0["proxied"] >= N_PROBE + N_LOAD,
+              f"the proxy counted {stats0} -> {stats1}")
+        if on_card:
+            copies = 2 * n_rows * DIM * (2 + 4)
+            fell = mem[-2][1] - mem[-1][1]
+            check(fell >= copies, f"the card's free memory fell by {fell} "
+                  f"bytes across the front's load, less than both "
+                  f"replicas' copies ({copies} bytes)")
+        vec = unit_vector(44)
+        t = time.perf_counter()
+        new_id = durable_write(front.port, n_rows + 1, vec)
+        out["write_ack_ms"] = (time.perf_counter() - t) * 1e3
+        for name in REPLICAS:
+            port = port_of(name)
+            out[f"{name}_landed_s"] = wait_for(
+                lambda: http_json(port, "POST", "/v1/query/vfast",
+                                  {"q": vec, "k": K})[1]["hits"][0]["$id"]
+                == new_id, LANDED_S, f"the front's write on {name}", 0.02)
+        want_size = (want_size[0] + 1, want_size[1])
+        log(f"cluster: through the front, the write acked in "
+            f"{out['write_ack_ms']:.1f} ms and read first from replica1 "
+            f"{out['replica1_landed_s']:.3f} s / replica2 "
+            f"{out['replica2_landed_s']:.3f} s later; proxy {stats1}")
+
+        # -- 5. failover under the supervisor
+        victim = note_pids()["replica1"]
+        before = proxy_stats(front)
+        failed: list = []
+
+        def load_across_the_kill():
+            try:
+                check_load(front.port, handoff, 0, N_FAILOVER,
+                           "through the front, replica1 killed")
+            except Exception as exc:  # reported after the join
+                failed.append(exc)
+
+        loader = threading.Thread(target=load_across_the_kill)
+        loader.start()
+        # kill while a quarter of the load is answered: requests are in
+        # flight on the victim's connections
+        wait_for(lambda: proxy_stats(front)["proxied"] - before["proxied"]
+                 >= N_FAILOVER // 4 or not loader.is_alive(), HTTP_TIMEOUT,
+                 "the load before the kill", 0.001)
+        os.kill(victim, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        loader.join()
+        check(not failed, f"reads across the kill: {failed}")
+        out["retries_after_kill"] = (proxy_stats(front)["retries"]
+                                     - before["retries"])
+        check(out["retries_after_kill"] > 0,
+              "the proxy retried nothing after the kill")
+        seen = {"down": None, "healthy": None}
+
+        def reseeded() -> bool:
+            up = front.topology()["replicas"][0]["healthy"]
+            if not up and seen["down"] is None:
+                seen["down"] = time.perf_counter()
+            if up and seen["down"] is not None and seen["healthy"] is None:
+                seen["healthy"] = time.perf_counter()
+            pid = pid_in(state("replica1") / "engine.pid")
+            return pid not in (None, victim) and seeded(port_of("replica1"))
+
+        wait_for(reseeded, SEED_S, "replica1's re-seed", 0.1)
+        t_seeded = time.perf_counter()
+        note_pids()
+        out["reseed_s"] = t_seeded - t_kill
+        check(seen["down"] is not None, "the front never marked replica1 "
+              "down")
+        out["marked_down_s"] = seen["down"] - t_kill
+        out["unseeded_routed_s"] = (t_seeded - seen["healthy"]
+                                    if seen["healthy"] else 0.0)
+        log(f"cluster: replica1's engine SIGKILLed under load: "
+            f"{N_FAILOVER} reads through the front equal, proxy retries +"
+            f"{out['retries_after_kill']}; the front marked it down after "
+            f"{out['marked_down_s']:.3f} s; restarted and re-seeded "
+            f"{out['reseed_s']:.1f} s after the kill; the front reported "
+            f"it healthy {out['unseeded_routed_s']:.1f} s before its seed "
+            f"landed, on {card_line}")
+        check_load(front.port, handoff, N_FAILOVER, N_FAILOVER,
+                   "through the front after the re-seed")
+
+        def both_healthy() -> bool:
+            status, topo = http_json(front.port, "GET", "/v1/ha")
+            return status == 200 and all(r["healthy"]
+                                         for r in topo["replicas"])
+
+        # a probe that times out (2 s) marks a replica down until the
+        # next one answers
+        out["both_healthy_wait_s"] = wait_for(
+            both_healthy, LANDED_S, "both replicas healthy in /v1/ha")
+        card_free("failover")
+        log(f"cluster: {N_FAILOVER} reads through the front equal after the "
+            f"re-seed; both replicas healthy in /v1/ha after "
+            f"{out['both_healthy_wait_s']:.1f} s more (replica1's last probe "
+            f"error: {front.replicas[0].last_error})")
+
+        # -- 6. stop
+        engines = note_pids()
+        out["rss_gib"] = {name: rss_gib(pid) for name, pid in engines.items()}
+        supervisor = pid_in(state("primary") / "server.pid")
+        t = time.perf_counter()
+        out["stop_rc"], text, _ = cli(proj, "stop", "primary", ok=False)
+        check(out["stop_rc"] in (0, 1), f"stop primary: {text}")
+        wait_for(lambda: not alive(supervisor), STOP_S, "the primary's exit")
+        out["stop_s"] = time.perf_counter() - t
+        _, again, _ = cli(proj, "stop", "primary")
+        for name in REPLICAS:
+            cli(proj, "stop", name)
+        left = [pid for pid in pids if alive(pid)]
+        check(not left, f"server processes left after stop: {left}")
+        check(snapshot.stat().st_mtime_ns > snap_before,
+              "stop did not write the primary's snapshot")
+        for name in names:
+            text = (state(name) / "server.log").read_text()
+            check("native gateway unavailable" not in text,
+                  f"{name} fell back: {text[-3000:]}")
+        check(lib_mtime is None or lib.stat().st_mtime_ns == lib_mtime,
+              "a server process rebuilt the kernel library")
+        if on_card:
+            out["card_gib_added"] = {
+                step: (mem[i - 1][1] - free) / (1 << 30)
+                for i, (step, free) in enumerate(mem) if i}
+        waited = "in time" if out["stop_rc"] == 0 else \
+            "still checkpointing when the CLI's wait ended"
+        log(f"cluster: stop primary exited {out['stop_rc']} ({waited}), "
+            f"the primary gone {out['stop_s']:.1f} s after the stop; stop "
+            f"again: {again.strip()!r}; snapshot written; no process left")
+        log(f"cluster on {card_line}: primary direct {out['direct']}, "
+            f"through the front over two replicas {out['front']}, in-process "
+            f"gateway (serve phase) {handoff['in_process']}; resident host "
+            f"memory GiB {out['rss_gib']}; card memory added GiB "
+            f"{out.get('card_gib_added')}")
+    finally:
+        if front is not None:
+            front.stop()
+        note_pids()
+        for pid in pids:
+            if alive(pid):
+                os.kill(pid, signal.SIGKILL)
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
-def free_port() -> int:
+def free_ports(n: int) -> list[int]:
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
 
 
 KERNELS = (
@@ -1835,8 +2260,11 @@ def main() -> int:
     gc.collect()
     text = timed("text", text_phase, device)
     gc.collect()
-    serve = timed("serve", serve_phase, device)
+    serve, handoff = timed("serve", serve_phase, device)
     log(f"serve on {card_line}: " + json.dumps(serve, default=float))
+    gc.collect()
+    cluster = timed("cluster", cluster_phase, device, handoff)
+    log(f"cluster on {card_line}: " + json.dumps(cluster, default=float))
     log(f"phase seconds: {json.dumps(seconds)}, run so far "
         f"{time.perf_counter() - start:.1f} s")
     log("device paths: " + json.dumps({

@@ -1,23 +1,18 @@
 """Native runtime components (C++), loaded via ctypes.
 
-Port copy of ``helix_tpu/native/__init__.py`` with the C++ sources of
-the functions the port calls: the write-ahead log (``wal.cpp``), the
-exact re-rank of the int8, int4 and host-IVF rungs (``rerank.cpp``),
-the native traversal sweep (``bfs.cpp``) and the HTTP gateway
-(``gateway.cpp``).  ``hxjson.cpp`` and its headers ``fastdouble.h`` and
-``fastdouble_pow5.h`` are here for ``helix_tpu_torch.fastjson`` (the
-gateway includes the headers too).  The HA proxy (``haproxy.cpp``)
-waits for the HA slice, so the library's source list and argtypes leave
-it out.  The library is compiled on first use with g++ into this
-directory (``libhxnative.so``, ignored by git), keyed on the source
-contents.  ``tests/test_torch_engine_copy.py`` holds the code equal to
-the reference's except for the functions listed here, and the C++
-sources byte for byte.
+Port copy of ``helix_tpu/native/__init__.py`` with every C++ source of
+the reference: the write-ahead log (``wal.cpp``), the exact re-rank of
+the int8, int4 and host-IVF rungs (``rerank.cpp``), the native traversal
+sweep (``bfs.cpp``), the HTTP gateway (``gateway.cpp``) and the HA
+front's proxy (``haproxy.cpp``).  ``hxjson.cpp`` and its headers
+``fastdouble.h`` and ``fastdouble_pow5.h`` are here for
+``helix_tpu_torch.fastjson`` (the gateway includes the headers too).
+The library is compiled on first use with g++ into this directory
+(``libhxnative.so``, ignored by git), keyed on the source contents.
+``tests/test_torch_engine_copy.py`` holds the code equal to the
+reference's, and the C++ sources byte for byte.
 
 Differs from the reference in:
-
-- ``_build_library``: compiles every source but ``haproxy.cpp``.
-- ``load``: declares no ``hxha_*`` argtypes.
 """
 
 from __future__ import annotations
@@ -63,7 +58,7 @@ def _cached(out: Path, key: str) -> bool:
 def _build_library(out: Path | None = None) -> Path:
     sources = [
         _HERE / "wal.cpp", _HERE / "rerank.cpp", _HERE / "bfs.cpp",
-        _HERE / "gateway.cpp",
+        _HERE / "gateway.cpp", _HERE / "haproxy.cpp",
     ]
     headers = [_HERE / "fastdouble.h", _HERE / "fastdouble_pow5.h"]
     out = out or _HERE / "libhxnative.so"
@@ -232,6 +227,41 @@ def load() -> ctypes.CDLL:
         ]
         lib.hxgw_dyn_stats.restype = None
         lib.hxgw_dyn_stats.argtypes = [ctypes.c_void_p, u64p, u64p, u64p]
+        # -- HA proxy --------------------------------------------------
+        lib.hxha_create.restype = ctypes.c_void_p
+        lib.hxha_create.argtypes = [ctypes.c_char_p, ctypes.c_int]
+        lib.hxha_port.restype = ctypes.c_int
+        lib.hxha_port.argtypes = [ctypes.c_void_p]
+        lib.hxha_set_backends.restype = None
+        lib.hxha_set_backends.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.hxha_start.restype = ctypes.c_int
+        lib.hxha_start.argtypes = [ctypes.c_void_p]
+        lib.hxha_stop.restype = None
+        lib.hxha_stop.argtypes = [ctypes.c_void_p]
+        lib.hxha_destroy.restype = None
+        lib.hxha_destroy.argtypes = [ctypes.c_void_p]
+        lib.hxha_next_control.restype = ctypes.c_longlong
+        lib.hxha_next_control.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_longlong),
+            ctypes.c_char_p, ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_longlong),
+        ]
+        lib.hxha_respond.restype = ctypes.c_int
+        lib.hxha_respond.argtypes = [
+            ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_longlong,
+        ]
+        lib.hxha_write_routes.restype = ctypes.c_longlong
+        lib.hxha_write_routes.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_longlong,
+        ]
+        lib.hxha_add_write_route.restype = None
+        lib.hxha_add_write_route.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.hxha_stats.restype = None
+        lib.hxha_stats.argtypes = [ctypes.c_void_p, u64p, u64p, u64p]
         _LIB = lib
         return lib
 

@@ -2,14 +2,16 @@
 
 ``helix_tpu_torch/engine/*.py`` are copies of ``helix_tpu/engine/*.py``,
 and ``helix_tpu_torch/{wire,telemetry,fastjson,client}.py``,
-``helix_tpu_torch/native/__init__.py`` and ``helix_tpu_torch/server/``
-copies of the same files of ``helix_tpu``.  Each copy's module docstring
+``helix_tpu_torch/native/__init__.py``, ``helix_tpu_torch/server/`` and
+``helix_tpu_torch/cli/`` copies of the same files of ``helix_tpu``.  Each copy's module docstring
 lists, after "Differs from the reference in:", the functions
 (``Class.method`` or module-level names, ``__main__`` for the
 ``if __name__ == "__main__":`` block) it changes, adds or drops.
 Everything else must equal the reference once imports are resolved to
-absolute module names (``helix_tpu_torch`` read as ``helix_tpu``), so a
-later fix to the reference cannot silently miss the port.
+absolute module names and ``helix_tpu_torch`` is read as ``helix_tpu``
+in imports and string constants (the module names the CLI spawns, the
+help texts and the scaffolding it writes), so a later fix to the
+reference cannot silently miss the port.
 ``helix_tpu_torch/dsl.py`` copies ``helix_tpu/dsl.py`` statement for
 statement, in the reference's order.  ``PackedMatrix``'s host methods
 (growth, appends, overwrites, query preparation) in
@@ -66,7 +68,16 @@ class _Normalise(ast.NodeTransformer):
 
     def visit_Import(self, node):
         # the port's own framework import (type annotations, devices)
-        return None if [a.name for a in node.names] == ["torch"] else node
+        if [a.name for a in node.names] == ["torch"]:
+            return None
+        for alias in node.names:
+            alias.name = _as_reference(alias.name)
+        return node
+
+    def visit_Constant(self, node):
+        if isinstance(node.value, str):
+            node.value = _as_reference(node.value)
+        return node
 
     def visit_FunctionDef(self, node):
         if self._name(node.name) in self.drop:
@@ -86,17 +97,25 @@ class _Normalise(ast.NodeTransformer):
 
     def visit_Assign(self, node):
         names = {t.id for t in node.targets if isinstance(t, ast.Name)}
-        return None if not self.scope and names & self.drop else node
+        if not self.scope and names & self.drop:
+            return None
+        return self.generic_visit(node)
 
     def visit_AnnAssign(self, node):
         name = getattr(node.target, "id", None)
-        return None if not self.scope and name in self.drop else node
+        if not self.scope and name in self.drop:
+            return None
+        return self.generic_visit(node)
 
     def visit_If(self, node):
         if not self.scope and _is_main(node) and "__main__" in self.drop:
             return None
         self.generic_visit(node)
         return node
+
+
+def _as_reference(text: str) -> str:
+    return re.sub(r"\bhelix_tpu_torch\b", "helix_tpu", text)
 
 
 def _is_main(node: ast.stmt) -> bool:
@@ -129,7 +148,8 @@ def _definitions(tree: ast.Module) -> set[str]:
 
 def _normalised(path: Path, package: str, drop: set[str]) -> list[str]:
     tree = ast.parse(path.read_text())
-    tree.body = tree.body[1:]  # the module docstring
+    if ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
     tree = _Normalise(package, drop).visit(tree)
     return [ast.dump(stmt) for stmt in tree.body]
 
@@ -171,6 +191,15 @@ HOST_MODULES = {
     "server.http_server": ("server/http_server.py", ".server"),
     "server.native_gateway": ("server/native_gateway.py", ".server"),
     "server.mcp": ("server/mcp.py", ".server"),
+    "server.ha_front": ("server/ha_front.py", ".server"),
+    "server.control_plane": ("server/control_plane.py", ".server"),
+    "cli": ("cli/__init__.py", ".cli"),
+    "cli.__main__": ("cli/__main__.py", ".cli"),
+    "cli.main": ("cli/main.py", ".cli"),
+    "cli.config": ("cli/config.py", ".cli"),
+    "cli.supervisor": ("cli/supervisor.py", ".cli"),
+    "cli.ts_query": ("cli/ts_query.py", ".cli"),
+    "cli.cloud": ("cli/cloud.py", ".cli"),
 }
 
 
@@ -230,7 +259,8 @@ def test_packed_matrix_host_methods_match_reference(method):
 
 
 NATIVE_SOURCES = ["wal.cpp", "rerank.cpp", "bfs.cpp", "gateway.cpp",
-                  "hxjson.cpp", "fastdouble.h", "fastdouble_pow5.h"]
+                  "haproxy.cpp", "hxjson.cpp", "fastdouble.h",
+                  "fastdouble_pow5.h"]
 
 
 @pytest.mark.parametrize("source", NATIVE_SOURCES)

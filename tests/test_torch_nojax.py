@@ -13,8 +13,18 @@ slice: an engine on a data dir writes and closes (checkpoint + WAL), a
 stored vector route on the fast path.  At the end no ``helix_tpu``
 module (the package or any of its submodules) may be in
 ``sys.modules``.
+
+A second run blocks ``jax`` and ``helix_tpu`` in every process it
+starts: a ``sitecustomize.py`` on a temporary ``PYTHONPATH`` entry
+installs a meta-path finder that refuses both (and records any attempt
+on ``helix_tpu``) and, at exit, records any such module loaded.  Under
+it the port's CLI runs a lifecycle (``init``, a supervised ``start
+--device cpu``, ``query``, ``stop``) and the port's HA front serves a
+write and reads over a primary and a replica of the port's server.
+Nothing may be recorded.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -179,3 +189,140 @@ def test_port_imports_and_serves_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX-OK" in proc.stdout
+
+
+SITECUSTOMIZE = r"""
+import atexit
+import os
+import sys
+
+BLOCKED = ("jax", "helix_tpu")
+LOG = os.environ["HELIX_REFUSED_LOG"]
+
+
+def _note(line):
+    with open(LOG, "a") as fh:
+        fh.write(line + "\n")
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            if name.split(".")[0] == "helix_tpu":
+                _note(f"{os.getpid()} tried {name}")
+            raise ModuleNotFoundError(f"{name} is blocked", name=name)
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+
+
+@atexit.register
+def _loaded():
+    for name in list(sys.modules):
+        if name.split(".")[0] in BLOCKED and sys.modules[name] is not None:
+            _note(f"{os.getpid()} loaded {name}")
+"""
+
+CLI_AND_FRONT = r"""
+import contextlib
+import io
+import json
+import os
+import socket
+import sys
+import time
+import urllib.request
+
+from helix_tpu_torch.cli.main import main
+
+proj = sys.argv[1]
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+
+
+def cli(*args):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = main(list(args))
+    assert code == 0, (args, code, out.getvalue())
+    return out.getvalue()
+
+
+cli("init", "--path", proj, "--port", str(port))
+os.chdir(proj)
+cli("start", "dev", "--device", "cpu", "--restart", "unless-stopped")
+try:
+    got = json.loads(cli("query", "dev", "--file", "examples/request.json",
+                         "--compact"))
+    assert got == {"node_count": 0}, got
+    assert "running" in cli("status")
+finally:
+    cli("stop", "dev")
+assert "stopped" in cli("status")
+
+from helix_tpu_torch.server import HelixHTTPServer
+from helix_tpu_torch.server.ha_front import HAFront
+
+
+def post(path, body):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{front.port}{path}",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def query(kind, steps, returns=()):
+    return {"request_type": kind, "query_name": None, "parameters": {},
+            "query": {"queries": [{"Query": {"name": "r", "steps": steps,
+                                             "condition": None}}],
+                      "returns": list(returns)}}
+
+
+primary = HelixHTTPServer(host="127.0.0.1", port=0, device="cpu")
+primary.start()
+replica = HelixHTTPServer(host="127.0.0.1", port=0, device="cpu",
+                          replica_of=f"http://127.0.0.1:{primary.port}")
+replica.start()
+front = HAFront(f"http://127.0.0.1:{primary.port}",
+                [f"http://127.0.0.1:{replica.port}"], host="127.0.0.1",
+                probe_s=0.2)
+front.start()
+try:
+    assert front._px is not None, "the native proxy did not start"
+    post("/v1/query", query("write", [{"AddN": {"label": "U",
+                                                "properties": []}}]))
+    count = query("read", [{"NWhere": {"Eq": ["$label", {"String": "U"}]}},
+                           "Count"], returns=["r"])
+    deadline = time.time() + 30
+    while replica.follower.applied_seq < 0 and time.time() < deadline:
+        time.sleep(0.05)
+    assert [post("/v1/query", count)["r"] for _ in range(4)] == [1] * 4
+finally:
+    front.stop()
+    replica.stop()
+    primary.stop()
+print("BLOCKED-OK")
+"""
+
+
+def test_cli_and_ha_front_run_with_the_reference_blocked(tmp_path):
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(SITECUSTOMIZE)
+    log = tmp_path / "refused.log"
+    env = dict(os.environ, HELIX_REFUSED_LOG=str(log),
+               PYTHONPATH=os.pathsep.join([str(site), str(ROOT)]),
+               HELIX_SUPERVISOR_BACKOFF_BASE="0.1")
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_AND_FRONT, str(tmp_path / "proj")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BLOCKED-OK" in proc.stdout
+    assert log.exists() is False or log.read_text() == "", log.read_text()
+    server_log = tmp_path / "proj" / ".helix" / "dev" / "server.log"
+    assert "Traceback" not in server_log.read_text()
