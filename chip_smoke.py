@@ -81,6 +81,23 @@ Phases, each failing the run on a bad check:
    primary's checkpoint.  Kernel 1 runs in those server processes, so
    its launch count holds only the in-process phases.
 
+The mesh steps (``helix_tpu_torch.parallel``) run on a virtual mesh of
+4 shards on ``cuda:0`` (over every card where there are more; every
+other phase runs on a one-device mesh): at the end of the engine phase
+the same engine (its ``shard_threshold`` and ``graph_shard_threshold``
+set, inert on one device) answers single reads and B=256 batches
+through ``Partition._search_sharded`` (kernel 1 must launch once per
+shard per batch and per read; recall@10 >= 0.99, ``$distance`` within
+1e-5), kernel 1 is held to its plain version at the last shard's shape
+(253,952 rows, part padding), and the graph reads run through
+``Executor._run_sharded_traversal`` with answers equal to the
+one-device ones byte for byte; at the ladder's int8 step the rung
+serves through ``ShardedInt8Search`` (host, then f16 device re-rank,
+recall@10 >= 0.98, no bucket-scores kernel); the text corpus through
+``ShardedBM25`` (ids equal to the host path's); then
+``graft.dryrun_multichip(4)``.  The batch medians print beside the
+one-device ones: a virtual mesh on one card claims no scaling.
+
 Kernel 1's phase also checks the tie rule (rows duplicated into
 different buckets come back lowest position first on 5 calls).
 
@@ -145,6 +162,10 @@ def card() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def card_name(device: torch.device) -> str:
+    return card() if device.type == "cuda" else "the CPU (a rehearsal)"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -816,7 +837,9 @@ def check_drop(engine, part, q: np.ndarray, rows_before: list,
 
 def engine_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
     data, queries = make_dataset(n_rows, DIM, N_PROBE + N_BATCHES * BATCH)
-    engine = new_engine(device)
+    # The mesh knobs are inert on a one-device mesh: the mesh step below
+    # sets a virtual mesh to engage them.
+    engine = new_engine(device, shard_threshold=1, graph_shard_threshold=1)
     ingest_s = ingest(engine, data, 0, n_rows)
     log(f"ingest {n_rows} x {DIM}: {ingest_s:.1f} s "
         f"({n_rows / ingest_s:.0f} docs/s)")
@@ -834,7 +857,7 @@ def engine_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
     log(f"H2D upload (bf16 + f32 copies of {matrix.n} rows): {upload_s:.3f} s")
     res = serve_reads(engine, part, queries, [], recall_floor=0.99,
                       dist_tol=TOL, what="exact")
-    check_drop(engine, part, queries[0], res["first_rows"], "exact")
+    dead = [check_drop(engine, part, queries[0], res["first_rows"], "exact")]
     counts = launch_counts()
     check_only_launched(device, counts, "bucket_scores", "engine phase")
     log(f"engine phase: launches {counts}")
@@ -842,6 +865,9 @@ def engine_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
     matrix.release_device()
     res.update(launches=counts["bucket_scores"], ingest_s=ingest_s,
                upload_s=upload_s)
+    t = time.perf_counter()
+    res["mesh"] = mesh_engine_step(engine, part, queries, dead, device, res)
+    res["mesh"]["seconds"] = time.perf_counter() - t
     return res
 
 
@@ -959,6 +985,9 @@ def ladder_phase(device: torch.device, n_rows: int = LADDER_ROWS) -> dict:
             out[what] = res
         if knob:
             os.environ.pop(knob)
+        if rung == "int8":
+            out["mesh int8"] = mesh_int8_step(engine, part, queries, dead,
+                                              device)
         dead.append(check_drop(engine, part, queries[0],
                                out[what]["first_rows"], what))
         check(part.matrix._device is None and part.matrix._device32 is None,
@@ -1233,7 +1262,8 @@ def engine_graph_phase(engine, part, queries: np.ndarray,
             {"q": {"Array": "F32"}, "k": "I64"})
     check(Executor.device_traversal_min_nodes <= snap.n_nodes,
           "the planner's size floor would route these reads to the host")
-    out = {"edges": done, "edge_ingest_s": ingest_s, "reads": {}}
+    out = {"edges": done, "edge_ingest_s": ingest_s, "reads": {},
+           "requests": reads, "answers": {}}
     for name, request in reads.items():
         engine.execute(request)  # warm-up: property columns, source index
         answers, ms = {}, {}
@@ -1254,6 +1284,7 @@ def engine_graph_phase(engine, part, queries: np.ndarray,
         os.environ.pop("HELIX_TRAVERSAL_BACKEND")
         check(len(set(answers.values())) == 1,
               f"{name}: answers differ across backends: {answers}")
+        out["answers"][name] = answers["device"]
         log(f"engine graph {name}: {answers['device'][:60]} equal on device "
             f"/ native / auto; wall {ms['device']:.1f} / {ms['native']:.1f} "
             f"/ {ms['auto']:.1f} ms")
@@ -1373,7 +1404,233 @@ def text_phase(device: torch.device, n_docs: int = N_TEXT_DOCS) -> dict:
         f"path's, scores within rtol 1e-5; TextSearchNodes read median: "
         f"device {res['device_ms']:.3f} ms, host {res['host_ms']:.3f} ms; "
         f"bm25_scores CUDA calls {ran['bm25_scores']}")
+    res["mesh"] = mesh_text_step(engine, part, read, device)
     return res
+
+
+# ------------------------------------------------------------------ mesh
+
+# The mesh steps run on a virtual mesh of MESH_SHARDS shards on one card
+# (every shard cuda:0), or over every card where there are more.  The
+# mesh is a virtual one on one card, so its times claim no scaling.
+MESH_SHARDS = 4
+
+
+def mesh_size(device: torch.device) -> int:
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    return max(MESH_SHARDS, cards)
+
+
+class CallCount:
+    """Counts the calls of ``owner.name`` within the block."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.n = owner, name, 0
+
+    def __enter__(self):
+        self._original = getattr(self.owner, self.name)
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return self._original(*args, **kwargs)
+
+        setattr(self.owner, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self._original)
+
+
+def mesh_engine_step(engine, part, queries: np.ndarray, dead: list,
+                     device: torch.device, single: dict) -> dict:
+    """The exact engine's mesh paths (its knobs are set; a virtual mesh
+    engages them): single reads and B=256 ``search_many`` batches through
+    ``Partition._search_sharded`` (kernel 1 once per shard per block of
+    up to 256 queries), held to the numpy oracle as the one-device reads
+    are; kernel 1 at one shard's shape against its plain version; the
+    graph reads through ``Executor._run_sharded_traversal``, equal to
+    the one-device answers byte for byte."""
+    from helix_tpu_torch.ops import fused_topk as F
+    from helix_tpu_torch.parallel import virtual_devices
+    from helix_tpu_torch.parallel.graph import ShardedGraph
+
+    n_mesh = mesh_size(device)
+    what = f"mesh x{n_mesh} exact"
+    with virtual_devices(device.type, n_mesh):
+        reset_launch_counts()
+        res = serve_reads(engine, part, queries, dead, recall_floor=0.99,
+                          dist_tol=TOL, what=what)
+        state = part._shard_state
+        check(state is not None and state["kind"] == "exact",
+              f"{what}: the sharded tier did not serve ({state})")
+        searcher = next(iter(state["searchers"].values()))
+        check(searcher.use_fused == (device.type == "cuda"),
+              f"{what}: fused route {searcher.use_fused} on {device}")
+        qb = queries[N_PROBE:N_PROBE + BATCH]
+        per_call = {}
+        for b in (BATCH, 1):
+            before = F.bucket_scores.launches
+            part.search_many(qb[:b], K)
+            per_call[b] = F.bucket_scores.launches - before
+        counts = launch_counts()
+        check_only_launched(device, counts, "bucket_scores", what)
+        blocks = -(-BATCH // F.MAX_QUERY_BLOCK)
+        check(device.type != "cuda" or per_call == {
+            BATCH: n_mesh * blocks, 1: n_mesh},
+            f"{what}: kernel 1 launches per call {per_call}, want "
+            f"{n_mesh * blocks} per batch and {n_mesh} per read")
+        log(f"{what}: kernel 1 launches {counts['bucket_scores']} over the "
+            f"step, {per_call[BATCH]} per B={BATCH} batch, {per_call[1]} "
+            f"per single read; search_many median {res['batch_ms']:.3f} "
+            f"ms/batch vs one device {single['batch_ms']:.3f} ms on "
+            f"{card_name(device)} (a virtual mesh on one card: no scaling "
+            "claimed)")
+
+        # Kernel 1 at the last shard's shape (part padding) on a batch.
+        xs, _, n_valid = state["arrays"]
+        x32, x16 = xs[0][-1]
+        if x16 is None:   # a CPU rehearsal's mesh scans in f32
+            x16 = x32.to(torch.bfloat16)
+        rows = x32.shape[0]
+        local_valid = min(max(n_valid - (n_mesh - 1) * rows, 0), rows)
+        q16 = torch.from_numpy(part.matrix.prepare_queries(qb)).to(
+            x16.device, torch.bfloat16)
+        err = compare_packed(F.bucket_scores(x16, q16, local_valid),
+                             F.bucket_scores_reference(x16, q16,
+                                                       local_valid),
+                             masked_sims(x16, q16, local_valid), TOL)
+        shard = {"rows": rows, "n_valid": local_valid, "max_abs_err": err}
+        if device.type == "cuda":
+            check(n_mesh != MESH_SHARDS or part.matrix.n != N_ROWS
+                  or rows == 253_952, f"{what}: shard rows {rows}")
+            shard.update(time_sides({
+                "ms": F.bucket_scores, "plain_ms": F.bucket_scores_reference,
+                "library_ms": lambda x, q, nv: torch.matmul(x, q.T)},
+                [(x16, q16, local_valid)]))
+            d = x16.shape[1]
+            shard["bound_ms"], shard["bound_by"] = bound(
+                rows * d * 2 + BATCH * d * 2 + rows // 64 * BATCH * 4,
+                2.0 * rows * d * BATCH, PEAK_BF16_PER_S)
+        log(f"{what}: kernel 1 at the shard shape N={rows} D={x16.shape[1]} "
+            f"B={BATCH} n_valid={local_valid} agrees with its plain version "
+            f"(max unpacked |err| {err:.3g}); {shard}")
+        del q16, xs, x32, x16
+
+        # The graph reads through the sharded traversal.
+        graph = single["graph"]
+        mesh_ms = {}
+        with CallCount(ShardedGraph, "run") as runs:
+            for name, request in graph["requests"].items():
+                t = time.perf_counter()
+                got = json.dumps(engine.execute(request))
+                mesh_ms[name] = (time.perf_counter() - t) * 1e3
+                check(got == graph["answers"][name],
+                      f"mesh {name}: {got[:80]} vs one device "
+                      f"{graph['answers'][name][:80]}")
+        check(runs.n == len(graph["requests"]),
+              f"mesh traversal: {runs.n} sharded runs for "
+              f"{len(graph['requests'])} reads")
+        log(f"mesh x{n_mesh} traversal: {runs.n} reads through "
+            f"_run_sharded_traversal, answers equal to one device's; wall "
+            f"ms {({k: round(v, 1) for k, v in mesh_ms.items()})} vs one "
+            f"device {({k: round(v['device'], 1) for k, v in graph['reads'].items()})}")
+    part._shard_state = None   # the shards' copies of the rows
+    return {"shards": n_mesh, "launches": counts["bucket_scores"],
+            "launches_per_batch": per_call[BATCH],
+            "launches_per_read": per_call[1], "recall": res["recall"],
+            "batch_recall": res["batch_recall"], "batch_ms": res["batch_ms"],
+            "single_batch_ms": single["batch_ms"], "p50_ms": res["p50_ms"],
+            "max_dist_err": res["max_dist_err"], "shard_kernel": shard,
+            "traversal_ms": mesh_ms}
+
+
+def mesh_int8_step(engine, part, queries: np.ndarray, dead: list,
+                   device: torch.device) -> dict:
+    """The ladder's int8 rung on the mesh: ``Partition._search_quant``
+    routes to ``ShardedInt8Search`` (the int8 product per shard, no
+    bucket-scores kernel, as in the reference), host re-rank then the
+    per-shard f16 device re-rank, at recall@10 >= 0.98."""
+    from helix_tpu_torch.parallel import virtual_devices
+
+    n_mesh = mesh_size(device)
+    before = launch_counts()
+    out = {}
+    start = time.perf_counter()
+    with virtual_devices(device.type, n_mesh):
+        for mode in ("host", "device"):
+            what = f"mesh x{n_mesh} int8 (HELIX_QUANT_RERANK {mode})"
+            os.environ["HELIX_QUANT_RERANK"] = mode
+            check(part._use_quant() and part._quant_rerank_device_sharded(
+                n_mesh) == (mode == "device"), f"{what}: rung or re-rank")
+            res = serve_reads(engine, part, queries, dead, recall_floor=0.98,
+                              dist_tol=TOL if mode == "host"
+                              else DEVICE_RERANK_TOL, what=what)
+            state = part._shard_state
+            check(state is not None and state["kind"] == "int8",
+                  f"{what}: sharded int8 did not serve")
+            out[mode] = {k: res[k] for k in ("recall", "batch_recall",
+                                             "batch_ms", "max_dist_err")}
+        os.environ.pop("HELIX_QUANT_RERANK")
+    check(launch_counts() == before,
+          f"mesh int8: a bucket-scores kernel launched ({launch_counts()})")
+    part._shard_state = None
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
+def mesh_text_step(engine, part, read, device: torch.device) -> dict:
+    """The text corpus on the mesh: the partition rebuilds its postings
+    as ``ShardedBM25`` and each query's ids equal the host path's."""
+    from helix_tpu_torch.ops.bm25 import ShardedBM25
+    from helix_tpu_torch.parallel import virtual_devices
+
+    n_mesh = mesh_size(device)
+    threshold = part.device_threshold
+    before = device_counts()
+    mesh_ms = []
+    start = time.perf_counter()
+    with virtual_devices(device.type, n_mesh):
+        part._device = None   # the one-device postings of this version
+        t = time.perf_counter()
+        engine.execute(read(TEXT_QUERIES[0]))
+        build_ms = (time.perf_counter() - t) * 1e3
+        check(isinstance(part._device[1], ShardedBM25),
+              "mesh text: ShardedBM25.build did not serve")
+        for query in TEXT_QUERIES:
+            t = time.perf_counter()
+            mesh = engine.execute(read(query))["r"]
+            mesh_ms.append((time.perf_counter() - t) * 1e3)
+            part.device_threshold = 10**9
+            host = engine.execute(read(query))["r"]
+            part.device_threshold = threshold
+            check([h["$id"] for h in mesh] == [h["$id"] for h in host]
+                  and len(mesh) == K, f"mesh text {query!r}: ids differ")
+            check(np.allclose([h["$score"] for h in mesh],
+                              [h["$score"] for h in host], rtol=1e-5, atol=0),
+                  f"mesh text {query!r}: scores differ past rtol 1e-5")
+    part._device = None
+    ran = counts_since(before)
+    check_device_ran(device, ran, ("bm25_scores",), "mesh text")
+    res = {"build_ms": build_ms, "ms": float(np.median(mesh_ms)),
+           "bm25_calls": ran["bm25_scores"],
+           "seconds": time.perf_counter() - start}
+    log(f"mesh x{n_mesh} text: ShardedBM25 ids equal to the host path's on "
+        f"{len(TEXT_QUERIES)} queries; build + first query {build_ms:.1f} "
+        f"ms, read median {res['ms']:.3f} ms; bm25_scores CUDA calls "
+        f"{ran['bm25_scores']}")
+    return res
+
+
+def mesh_dryrun_step(device: torch.device) -> float:
+    """``graft.dryrun_multichip`` on the device's virtual mesh."""
+    from helix_tpu_torch import graft
+
+    t = time.perf_counter()
+    graft.dryrun_multichip(mesh_size(device), device)
+    seconds = time.perf_counter() - t
+    log(f"graft.dryrun_multichip({mesh_size(device)}) on {device}: ok in "
+        f"{seconds:.1f} s")
+    return seconds
 
 
 # ----------------------------------------------------------------- serve
@@ -2213,6 +2470,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    from helix_tpu_torch.parallel import virtual_devices
+
+    # One device outside the mesh steps, which set their own mesh: on a
+    # machine of several cards the engine's mesh knobs stay inert there.
+    with virtual_devices("cuda", 1):
+        return run_phases()
+
+
+def run_phases() -> int:
     start = time.perf_counter()
     device = torch.device("cuda", 0)
     card_line = card()
@@ -2245,6 +2511,7 @@ def main() -> int:
     kern = {"bucket_scores": timed("kernel", kernel_phase, device)}
     kern.update(timed("quant kernels", quant_kernel_phase, device))
     eng = timed("engine", engine_phase, device)
+    seconds["mesh exact + traversal"] = round(eng["mesh"]["seconds"], 1)
     # Derived from the two phases (kernel and fused step on the kernel
     # phase's random matrix, search_many on the engine's): where one
     # B=256 search_many goes.
@@ -2260,6 +2527,10 @@ def main() -> int:
     gc.collect()
     text = timed("text", text_phase, device)
     gc.collect()
+    timed("mesh dry run", mesh_dryrun_step, device)
+    gc.collect()
+    seconds["mesh int8"] = round(ladder["mesh int8"]["seconds"], 1)
+    seconds["mesh text"] = round(text["mesh"]["seconds"], 1)
     serve, handoff = timed("serve", serve_phase, device)
     log(f"serve on {card_line}: " + json.dumps(serve, default=float))
     gc.collect()
@@ -2268,11 +2539,19 @@ def main() -> int:
     log(f"phase seconds: {json.dumps(seconds)}, run so far "
         f"{time.perf_counter() - start:.1f} s")
     log("device paths: " + json.dumps({
-        "graph_ops": graph_ops, "engine_graph": eng["graph"],
+        "graph_ops": graph_ops, "engine_graph": {
+            k: v for k, v in eng["graph"].items()
+            if k not in ("requests", "answers")},
         "ivf": {k: v for k, v in ladder.items() if k.startswith("ivf")},
         "text": text}, default=float))
-    launches = {"bucket_scores": eng["launches"] + serve["launches"],
-                **ladder["launches"]}
+    log(f"mesh on {card_line}: " + json.dumps({
+        "exact": eng["mesh"], "int8": ladder["mesh int8"],
+        "text": text["mesh"]}, default=float))
+    # kernel 1's launches on each path that runs it, counted from 0 just
+    # before the path and read just after: the exact engine, the serve
+    # phase, the mesh
+    launches = {"bucket_scores": eng["launches"] + serve["launches"]
+                + eng["mesh"]["launches"], **ladder["launches"]}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -14,19 +14,17 @@ indexes (with the residency ladder's knobs, ``hbm_budget_bytes`` and
 device traversal) and to the text indexes (device BM25 postings).
 Disk mode (``data_dir``, ``snapshot_store``) and replica seeds are the
 reference's code: a snapshot holds host state only, and the first search
-after recovery rebuilds the device arrays.  Knobs whose code paths are
-later slices of the port are refused with an error naming the slice,
-never silently ignored: ``shard_threshold`` and
-``graph_shard_threshold`` (multi-GPU).
+after recovery rebuilds the device arrays.  The mesh knobs
+(``shard_threshold``, ``graph_shard_threshold``) pass on as in the
+reference; their paths engage where the mesh over the engine's device
+type (``parallel/mesh.py``) holds more than one device.
 ``tests/test_torch_engine_copy.py`` holds the rest of the code equal to
 the reference's.
 
 Differs from the reference in:
 
-- ``_refuse``: new, the refusal of those knobs.
-- ``Engine.__init__``: takes ``device`` and hands it down; refuses the
-  knobs above; makes the traversal router, device first when the device
-  is CUDA.
+- ``Engine.__init__``: takes ``device`` and hands it down; makes the
+  traversal router, device first when the device is CUDA.
 - ``Engine.load_replica_seed``: the new snapshot cache gets the engine's
   device.
 """
@@ -109,14 +107,6 @@ def _tagged_bytes(value: Any) -> int:
     return 16
 
 
-def _refuse(name: str, value: Any, slice_name: str) -> None:
-    if value is not None:
-        raise ValueError(
-            f"{name} is not supported by helix_tpu_torch yet ({slice_name} "
-            "slice, ROADMAP.md Queue 1)"
-        )
-
-
 class Engine:
     def __init__(
         self,
@@ -139,12 +129,11 @@ class Engine:
                 "Engine(device='cuda') but torch sees no CUDA device; pass "
                 "device='cpu' to run on the host"
             )
-        _refuse("shard_threshold", shard_threshold, "multi-GPU")
-        _refuse("graph_shard_threshold", graph_shard_threshold, "multi-GPU")
         self.store = GraphStore()
         self.snapshots = SnapshotCache(self.store, device=self.device)
         self.vectors = VectorManager(
             metric=metric, batch_window_ms=batch_window_ms,
+            shard_threshold=shard_threshold,
             hbm_budget_bytes=hbm_budget_bytes,
             quant_candidates=quant_candidates,
             device=self.device,

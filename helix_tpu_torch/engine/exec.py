@@ -46,11 +46,10 @@ Differs from the reference in:
   ``device_first`` is set, native first otherwise.
 - ``Executor._run_device_plan``: runs the plan on the snapshot's device
   with the port's ``ops/csr.py``.
-- ``Executor._run_sharded_traversal``: raises NotImplementedError (multi-GPU
-  slice); unreachable while the engine refuses ``graph_shard_threshold``.
-- ``_QueryState._sharded_hop``: raises NotImplementedError (multi-GPU slice)
-  past the ``graph_shard_threshold`` gate, which the engine refuses.
-- ``_QueryState._sharded_edge_hop``: as ``_sharded_hop``.
+- ``Executor._run_sharded_traversal``: counts the mesh's devices with
+  ``parallel.device_count`` over the snapshot's device type.
+- ``_QueryState._sharded_hop``: as ``_run_sharded_traversal``.
+- ``_QueryState._sharded_edge_hop``: as ``_run_sharded_traversal``.
 """
 
 from __future__ import annotations
@@ -1055,11 +1054,34 @@ class Executor:
         return mask.cpu().numpy()
 
     def _run_sharded_traversal(self, snap, plan: list, start: np.ndarray):
-        """Multi-device traversal plan (multi-GPU slice, not ported yet)."""
-        raise NotImplementedError(
-            "sharded traversal is not ported yet: multi-GPU slice, "
-            "ROADMAP.md Queue 1"
-        )
+        """Translate the resolved plan onto the multi-device executor;
+        None (fall through to the single-host backends) when the mesh
+        over the snapshot's device type has one device or the adjacency
+        exceeds the padding degree cap."""
+        from ..parallel import device_count
+
+        if device_count(snap.device) < 2:
+            return None
+        directions: set[str] = set()
+        for op in plan:
+            if op[0] == "hop":
+                directions.update(d for d, _ in op[1])
+        sgraph = snap.sharded_graph(tuple(sorted(directions)))
+        if sgraph is None:
+            return None
+        plan_ops: list = []
+        codes: list[int] = []
+        masks: list[np.ndarray] = []
+        for op in plan:
+            if op[0] == "hop":
+                # all expansions of one hop share the label payload
+                # (Both = out+in with the same label filter)
+                plan_ops.append(("hop", tuple(d for d, _ in op[1])))
+                codes.append(op[1][0][1])
+            else:
+                plan_ops.append(("mask", len(masks)))
+                masks.append(np.asarray(op[1], bool))
+        return sgraph.run(plan_ops, start, codes, masks)
 
     # ------------------------------------------------------------------
     # Encoding
@@ -1529,10 +1551,21 @@ class _QueryState:
             return None
         if label is not None and label not in snap.edge_label_code:
             return None  # unknown label: host path yields the empty frame
-        raise NotImplementedError(
-            "sharded hops are not ported yet: multi-GPU slice, "
-            "ROADMAP.md Queue 1"
+        from ..parallel import device_count
+
+        if device_count(snap.device) < 2:
+            return None
+        sgraph = snap.sharded_graph((direction,))
+        if sgraph is None:
+            return None
+        code = -1 if label is None else snap.edge_label_code[label]
+        slots = snap.node_slots_or_neg(frame.ids)
+        rows = np.nonzero(slots >= 0)[0]
+        parent_local, target_slots = sgraph.expand_frame(
+            direction, code, slots[rows].astype(np.int32)
         )
+        # expand_frame pads slots to n_pad; targets are real node slots
+        return rows[parent_local], snap.node_ids[target_slots]
 
     def _step_Out(self, frame: Frame, label: Any) -> Frame:
         sharded = self._sharded_hop(frame, label, "out")
@@ -1568,10 +1601,20 @@ class _QueryState:
             return None
         if label is not None and label not in snap.edge_label_code:
             return None
-        raise NotImplementedError(
-            "sharded hops are not ported yet: multi-GPU slice, "
-            "ROADMAP.md Queue 1"
+        from ..parallel import device_count
+
+        if device_count(snap.device) < 2:
+            return None
+        sgraph = snap.sharded_graph((direction,), with_edges=True)
+        if sgraph is None:
+            return None
+        code = -1 if label is None else snap.edge_label_code[label]
+        slots = snap.node_slots_or_neg(frame.ids)
+        rows = np.nonzero(slots >= 0)[0]
+        parent_local, edge_slots, _targets = sgraph.expand_frame_edges(
+            direction, code, slots[rows].astype(np.int32)
         )
+        return rows[parent_local], edge_slots
 
     def _step_OutE(self, frame: Frame, label: Any) -> Frame:
         sharded = self._sharded_edge_hop(frame, label, "out")

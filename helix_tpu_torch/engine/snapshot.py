@@ -20,7 +20,7 @@ Differs from the reference in:
 
 - ``GraphSnapshot.padded_graph``: builds the padded adjacency on the
   snapshot's ``device``, which :class:`SnapshotCache` hands down.
-- ``GraphSnapshot.sharded_graph``: raises NotImplementedError (multi-GPU slice).
+- ``GraphSnapshot.sharded_graph``: the mesh over the snapshot's device.
 - ``SnapshotCache.__init__``: takes the engine's ``device``.
 - ``SnapshotCache.get``: sets ``device`` on every snapshot it makes.
 """
@@ -552,11 +552,28 @@ class GraphSnapshot:
 
     def sharded_graph(self, directions: tuple[str, ...],
                       with_edges: bool = False):
-        """Multi-device edge-partitioned adjacency (not ported)."""
-        raise NotImplementedError(
-            "sharded graphs are not ported yet: multi-GPU slice, "
-            "ROADMAP.md Queue 1"
-        )
+        """Multi-device edge-partitioned adjacency (parallel/graph.py)
+        over the mesh of the snapshot's device type, cached per snapshot
+        for the direction set the plan needs; None when any direction
+        exceeds the padding degree cap.  ``with_edges`` uploads the
+        edge-slot plane so ordered edge steps (OutE/InE) run sharded
+        too."""
+        key = ("sharded", directions, with_edges)
+        if key in self._padded:
+            return self._padded[key]
+        from ..parallel import ShardedGraph, make_mesh
+
+        dirmap = {}
+        for direction in directions:
+            host = self.padded_host(direction, include_edges=with_edges)
+            if host is None:
+                self._padded[key] = None
+                return None
+            dirmap[direction] = host
+        graph = ShardedGraph(make_mesh(device=self.device), self.n_nodes,
+                             dirmap)
+        self._padded[key] = graph
+        return graph
 
     def csr_arrays(self, direction: str):
         """(indptr int64, target slots int32, label codes int32) for the

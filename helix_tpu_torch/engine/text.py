@@ -20,8 +20,8 @@ Differs from the reference in:
 
 - ``TextPartition.__init__``: takes the engine's ``device``.
 - ``TextPartition._device_postings``: builds ``DevicePostings`` on that
-  device; one device (the reference's mesh branch, ``ShardedBM25``, is
-  the multi-GPU slice).
+  device, or ``ShardedBM25`` over the mesh of that device's type where it
+  holds more than one device (``parallel.device_count``).
 - ``TextIndex.__init__``: takes ``device``.
 - ``TextIndex.insert_element``: passes ``device`` to new partitions.
 - ``TextManager.__init__``: takes ``device``.
@@ -129,11 +129,24 @@ class TextPartition:
             and self.version - cached[0] < self.REBUILD_MIN_WRITES
         ):
             return None  # hysteresis: host path until writes amortize
-        from ..ops.bm25 import DevicePostings
+        from ..parallel import device_count
 
-        built = DevicePostings.build(
-            self.postings, self.doc_len, device=self.device
-        )
+        if device_count(self.device) > 1:
+            # doc-partitioned postings across the mesh (global IDF/avgdl
+            # travel with the query; the per-shard top-k merge on the
+            # partition's device) — the text workload's multi-device path
+            from ..ops.bm25 import ShardedBM25
+            from ..parallel import make_mesh
+
+            built = ShardedBM25.build(
+                self.postings, self.doc_len, make_mesh(device=self.device)
+            )
+        else:
+            from ..ops.bm25 import DevicePostings
+
+            built = DevicePostings.build(
+                self.postings, self.doc_len, device=self.device
+            )
         self._device = (self.version, built)
         return built
 

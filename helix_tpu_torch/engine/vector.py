@@ -15,32 +15,40 @@ MXU through the residency ladder (exact / int8 / int4 / host IVF).
 
 Port of ``helix_tpu/engine/vector.py`` for ``helix_tpu_torch``: partitions
 hold the port's :class:`~helix_tpu_torch.ops.distance.PackedMatrix` on the
-engine's ``torch.device`` and walk the residency ladder on one device:
-exact, int8 (``ops/quant.py``), int4 (``ops/quant4.py``), then host-exact
-for l2 and host IVF for cosine (``ops/ivf.py``, centroids on the
-partition's device).  The sharded tier (multi-GPU) is a later slice.
+engine's ``torch.device`` and walk the residency ladder: exact, int8
+(``ops/quant.py``), int4 (``ops/quant4.py``), then host-exact for l2 and
+host IVF for cosine (``ops/ivf.py``, centroids on the partition's
+device).  Where the mesh over the partition's device type
+(``parallel/mesh.py``) holds more than one device, the reference's mesh
+branches serve: the sharded exact tier above ``shard_threshold``
+(``parallel/sharded.py``, kernel 1 per shard on CUDA) and sharded int8
+for the int8 and int4 rungs (``ops/quant.py:ShardedInt8Search``).
 ``tests/test_torch_engine_copy.py`` holds the rest of the code equal to
 the reference's.
 
 Differs from the reference in:
 
-- ``Partition.__init__``: takes ``device``; no shard state.
+- ``Partition.__init__``: takes ``device``.
 - ``Partition.add``: builds the matrix on the partition's device.
 - ``Partition.add_bulk``: builds the matrix on the partition's device.
-- ``Partition.search_many_async``: no sharded tier.
-- ``Partition._search_quant``: one device (no mesh branch).
-- ``Partition._search_quant_sharded``: multi-GPU rung, not ported.
-- ``Partition._quant_rerank_device_sharded``: multi-GPU rung, not ported.
-- ``Partition._quant4_recall_serving``: one device (no mesh branch).
-- ``Partition._search_quant4``: one device (no mesh branch).
+- ``Partition._search_quant``: counts the mesh's devices with
+  ``parallel.device_count``.
+- ``Partition._search_quant_sharded``: the mesh over the partition's
+  device; the searcher's outputs come to the host as tensors.
+- ``Partition._quant4_recall_serving``: as ``_search_quant``.
+- ``Partition._search_quant4``: as ``_search_quant``.
 - ``Partition._ensure_host_ivf``: builds the IVF index on the partition's
   device.
-- ``Partition._use_shard``: multi-GPU rung, not ported.
-- ``Partition._search_sharded``: multi-GPU rung, not ported.
-- ``VectorIndex.__init__``: takes ``device`` in place of ``shard_threshold``.
+- ``Partition._use_shard``: as ``_search_quant``.
+- ``Partition._search_sharded``: as ``_search_quant_sharded``; ``bf16``
+  on a CUDA mesh (where the reference says a TPU backend), and kernel 1
+  per shard only where each shard holds at least ``FUSED_ROW_THRESHOLD``
+  rows, the one-device tier's rule (the reference fuses any shard on a
+  TPU; a shard of few valid rows has too few 64-row buckets, one
+  candidate each, to supply ``8 k`` candidates).
+- ``VectorIndex.__init__``: takes ``device``.
 - ``VectorIndex.partition_for``: passes ``device`` on.
-- ``VectorManager.__init__``: takes ``device`` in place of
-  ``shard_threshold``.
+- ``VectorManager.__init__``: takes ``device``.
 - ``VectorManager.on_index_created``: passes ``device`` on.
 """
 
@@ -104,6 +112,7 @@ class Partition:
     def __init__(
         self,
         metric: str,
+        shard_threshold: int | None = None,
         hbm_budget_bytes: int | None = None,
         quant_candidates: int | None = None,
         *,
@@ -121,6 +130,9 @@ class Partition:
         self.n_rows = 0
         self._n_live = 0
         self.pos: dict[int, int] = {}
+        # Multi-device: shard the matrix across the mesh above this size.
+        self.shard_threshold = shard_threshold
+        self._shard_state: dict | None = None
         # Beyond-budget laddering (gated by hbm_budget_bytes): exact
         # bf16+f32 residency while it fits, then int8 codes + exact f32
         # re-rank (ops/quant.py), then packed int4 (ops/quant4.py), then
@@ -238,8 +250,8 @@ class Partition:
     def search_many_async(self, queries: np.ndarray, k: int):
         """Dispatch a batched search; returns ``finalize() -> (ids,
         dists)``.  The exact tier defers its D2H so a serving loop can
-        overlap dispatches (``search_packed_async``); the quantized and
-        host tiers compute eagerly and return a pre-resolved closure."""
+        overlap dispatches (``search_packed_async``); shard/ANN tiers
+        compute eagerly and return a pre-resolved closure."""
         b = len(queries)
         if self.matrix is None or self.live_count() == 0:
             empty = (
@@ -261,6 +273,10 @@ class Partition:
             return lambda: self._map_hits(dists, positions, id_table)
         if self._use_quant4():
             dists, positions = self._search_quant4(queries, k)
+            id_table = self.id_table  # stable view; see exact tier below
+            return lambda: self._map_hits(dists, positions, id_table)
+        if self._use_shard():
+            dists, positions = self._search_sharded(queries, k)
             id_table = self.id_table  # stable view; see exact tier below
             return lambda: self._map_hits(dists, positions, id_table)
         inner = search_packed_async(
@@ -352,7 +368,10 @@ class Partition:
         self, queries: np.ndarray, k: int
     ) -> tuple[np.ndarray, np.ndarray]:
         from ..ops.quant import QuantizedResident
+        from ..parallel import device_count
 
+        if device_count(self.device) > 1:
+            return self._search_quant_sharded(queries, k)
         if self.quant is None:
             self.quant = QuantizedResident()
         return self.quant.search(
@@ -361,6 +380,102 @@ class Partition:
             rerank_device=self._quant_rerank_device(),
         )
 
+    def _search_quant_sharded(
+        self, queries: np.ndarray, k: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Mesh-sharded int8 coarse phase + exact f32 re-rank (the
+        quantized rung at multi-device scale).
+
+        Re-rank runs per shard on its device when the f16 copy fits the
+        per-device budget (rows re-score where they live; the merge then
+        carries f32-accumulated f16 re-rank scores, and the host re-rank
+        drops out) and on the host in f32 otherwise."""
+        from ..ops.quant import ShardedInt8Search, quantize_rows
+        from ..parallel import make_mesh
+
+        n = self.matrix.n
+        k_cand = min(max(8 * k, 64, self.quant_candidates or 0), n)
+        state = self._shard_state
+        if (
+            state is None
+            or state.get("kind") != "int8"
+            or state["version"] != self.matrix.version
+        ):
+            # Arrays are keyed by matrix version only: quantization and
+            # the upload must not repeat when clients alternate k;
+            # searchers are made per k_cand and share the arrays (row
+            # padding is k-independent).
+            state = {
+                "kind": "int8", "version": self.matrix.version,
+                "mesh": make_mesh(device=self.device), "searchers": {},
+                "arrays": None, "rr_arrays": None,
+            }
+            self._shard_state = state
+        n_shard = int(state["mesh"].shape["shard"])
+        use_dev = self._quant_rerank_device_sharded(n_shard)
+        skey = (k_cand, k if use_dev else None)
+        search = state["searchers"].get(skey)
+        if search is None:
+            search = ShardedInt8Search(
+                state["mesh"], k=k_cand, metric=self.metric,
+                rerank_device=use_dev, k_out=k,
+            )
+            state["searchers"][skey] = search
+        if state["arrays"] is None:
+            values, scales = quantize_rows(self.matrix.data[:n])
+            state["arrays"] = search.shard_arrays(
+                values, scales, self.matrix.sq_norms[:n]
+            )
+        xs_i8, scales, sq, n_valid = state["arrays"]
+        qs = self.matrix.prepare_queries(queries)
+        if use_dev:
+            if state["rr_arrays"] is None:
+                state["rr_arrays"] = search.shard_rerank_arrays(
+                    self.matrix.data[:n], self.live_mask
+                )
+            sims, ids = search(
+                xs_i8, scales, sq, qs, n_valid,
+                rerank_arrays=state["rr_arrays"],
+            )
+            sims = sims.cpu().numpy().astype(np.float32)
+            pos = ids.cpu().numpy().astype(np.int64)
+            if self.metric == "cosine":
+                dists = 1.0 - sims
+            else:
+                q_sq = np.sum(qs * qs, axis=1, keepdims=True)
+                dists = q_sq - sims
+            dead = pos < 0
+            return (
+                np.where(dead, np.inf, dists).astype(np.float32),
+                np.where(dead, -1, pos),
+            )
+        from ..native import rerank as native_rerank
+
+        _, cand = search(xs_i8, scales, sq, qs, n_valid)
+        cand = cand.cpu().numpy().astype(np.int64)
+        live = self.live_mask
+        cand = np.where(
+            (cand < n) & live[np.clip(cand, 0, n - 1)], cand, -1
+        )
+        return native_rerank(
+            self.matrix.data[:n], self.matrix.sq_norms[:n], qs, cand, k,
+            self.metric,
+        )
+
+    def _quant_rerank_device_sharded(self, n_shard: int) -> bool:
+        """Mesh variant of :meth:`_quant_rerank_device`: rows shard
+        1/n_shard per chip, so the f16 re-rank copy fits whenever the
+        PER-CHIP slice of (int8 + f16 + scales) is inside the budget."""
+        import os
+
+        mode = os.environ.get("HELIX_QUANT_RERANK", "auto")
+        if mode == "host":
+            return False
+        if mode == "device":
+            return True
+        per_chip = self._quant_dev_resident_bytes() // max(n_shard, 1)
+        return per_chip <= self.hbm_budget_bytes
+
     # -- int4 packed residency tier ----------------------------------------
 
     def _quant4_recall_serving(self) -> bool:
@@ -368,8 +483,16 @@ class Partition:
         candidate pool (ops/quant4.recall_safe_pool_int4) must stay
         within INT4_MAX_POOL, or the walk moves on to host-IVF; an
         explicit quant_candidates override wider than the safe pool
-        re-enables the rung (the operator owns the trade)."""
+        re-enables the rung (the operator owns the trade).  On a mesh the
+        rung serves through sharded int8, whose pool rule this is not."""
         from ..ops.quant4 import INT4_MAX_POOL, recall_safe_pool_int4
+        from ..parallel import device_count
+
+        if device_count(self.device) > 1:
+            # the mesh path serves this rung via sharded int8 (see
+            # _search_quant4), whose 8-bit noise holds the floor at the
+            # ordinary pool — the int4 pool rule does not apply
+            return True
 
         need = recall_safe_pool_int4(self.matrix.n)
         if self.quant_candidates is not None \
@@ -390,7 +513,14 @@ class Partition:
         self, queries: np.ndarray, k: int
     ) -> tuple[np.ndarray, np.ndarray]:
         from ..ops.quant4 import Int4Resident
+        from ..parallel import device_count
 
+        if device_count(self.device) > 1:
+            # On a mesh the corpus shards 1/n_dev per device, so the int8
+            # rung fits per shard whenever whole-corpus int4 does
+            # (int8/n_dev < int4 for n_dev >= 2): route to the sharded
+            # int8 path rather than paying 4-bit noise.
+            return self._search_quant_sharded(queries, k)
         if self.quant4 is None:
             self.quant4 = Int4Resident()
         return self.quant4.search(
@@ -509,6 +639,78 @@ class Partition:
             np.take_along_axis(positions, order, axis=1),
         )
 
+    # -- sharded tier ------------------------------------------------------
+
+    def _use_shard(self) -> bool:
+        if self.shard_threshold is None or self.live_count() < self.shard_threshold:
+            return False
+        from ..parallel import device_count
+
+        return device_count(self.device) > 1
+
+    def _search_sharded(
+        self, queries: np.ndarray, k: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Row-sharded search over the device mesh + top-k merge on the
+        partition's device, followed by an exact native re-rank of the
+        merged candidates."""
+        from ..native import rerank as native_rerank
+        from ..ops.distance import FUSED_ROW_THRESHOLD
+        from ..parallel import ShardedVectorSearch, make_mesh
+
+        n = self.matrix.n
+        state = self._shard_state
+        if (
+            state is None
+            or state.get("kind", "exact") != "exact"
+            or state["version"] != self.matrix.version
+        ):
+            mesh = make_mesh(device=self.device)
+            state = {
+                "kind": "exact",
+                "version": self.matrix.version,
+                "mesh": mesh,
+                "searchers": {},
+                "arrays": None,
+            }
+            self._shard_state = state
+        k_scan = min(n, max(32, 8 * k))
+        searcher = state["searchers"].get(k_scan)
+        if searcher is None:
+            # kernel 1 per shard only where each shard holds as many rows
+            # as the one-device tier fuses: one candidate per 64-row
+            # bucket, so a shard of few valid rows would supply too few
+            n_shard = int(state["mesh"].shape["shard"])
+            fused = (
+                self.device.type == "cuda" and self.metric == "cosine"
+                and n // n_shard >= FUSED_ROW_THRESHOLD
+            )
+            searcher = ShardedVectorSearch(
+                state["mesh"], k=k_scan, metric=self.metric,
+                bf16=self.device.type == "cuda", use_fused=fused,
+            )
+            state["searchers"][k_scan] = searcher
+            # arrays stay: shard_arrays depends only on mesh/tile/fused
+            # (k-independent), so alternating k must not re-upload the
+            # matrix — same invariant as the int8 tier
+        if state["arrays"] is None:
+            state["arrays"] = searcher.shard_arrays(
+                self.matrix.data[:n], self.matrix.sq_norms[:n]
+            )
+        xs, sqd, n_valid = state["arrays"]
+        qs = self.matrix.prepare_queries(queries)
+        _, cand = searcher(xs, qs, n_valid, sqd)
+        cand = cand.cpu().numpy().astype(np.int64)
+        live = self.live_mask
+        cand = np.where(
+            (cand < n) & live[np.clip(cand, 0, n - 1)], cand, -1
+        )
+        dists, positions = native_rerank(
+            self.matrix.data[:n], self.matrix.sq_norms[:n], qs, cand, k,
+            self.metric,
+        )
+        return dists, positions
+
 
 class VectorIndex:
     """All partitions of one declared (kind, label, property) index."""
@@ -517,6 +719,7 @@ class VectorIndex:
         self,
         defn: IndexDef,
         metric: str,
+        shard_threshold: int | None = None,
         hbm_budget_bytes: int | None = None,
         quant_candidates: int | None = None,
         *,
@@ -525,6 +728,7 @@ class VectorIndex:
         self.defn = defn
         self.metric = metric
         self.device = device
+        self.shard_threshold = shard_threshold
         self.hbm_budget_bytes = hbm_budget_bytes
         self.quant_candidates = quant_candidates
         self.partitions: dict[tuple, Partition] = {}
@@ -534,6 +738,7 @@ class VectorIndex:
         if part is None:
             part = Partition(
                 self.metric,
+                shard_threshold=self.shard_threshold,
                 hbm_budget_bytes=self.hbm_budget_bytes,
                 quant_candidates=self.quant_candidates,
                 device=self.device,
@@ -681,6 +886,7 @@ class VectorManager:
         self,
         metric: str = "cosine",
         batch_window_ms: float | None = None,
+        shard_threshold: int | None = None,
         hbm_budget_bytes: int | None = None,
         quant_candidates: int | None = None,
         *,
@@ -688,6 +894,7 @@ class VectorManager:
     ):
         self.metric = metric
         self.device = device
+        self.shard_threshold = shard_threshold
         self.hbm_budget_bytes = hbm_budget_bytes
         self.quant_candidates = quant_candidates
         self.indexes: dict[tuple, VectorIndex] = {}
@@ -704,6 +911,7 @@ class VectorManager:
             return
         index = VectorIndex(
             defn, self.metric,
+            shard_threshold=self.shard_threshold,
             hbm_budget_bytes=self.hbm_budget_bytes,
             quant_candidates=self.quant_candidates,
             device=self.device,

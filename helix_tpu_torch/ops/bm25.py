@@ -1,5 +1,5 @@
 """Device BM25 scoring: padded postings + per-term scatter-add (PyTorch
-port of the single-device part of ``helix_tpu/ops/bm25.py``).
+port of ``helix_tpu/ops/bm25.py``).
 
 Layout as in the reference: postings become a padded ``[T, P]`` doc-slot
 matrix (pad ``N``) with a parallel term-frequency matrix, and a query
@@ -25,7 +25,10 @@ Deliberate differences from the reference:
 - The query's terms are host arrays (they come from the host
   vocabulary), so the number of known terms is read without a sync.
 
-``ShardedBM25`` (the mesh path) belongs to the multi-GPU slice.
+:class:`ShardedBM25` is the mesh path: documents partition across the
+mesh's shards, each shard scores its slice with :func:`bm25_scores` on
+its own device (the global IDF and avgdl travel with the query), and the
+per-shard top-k merge on the merge device (``parallel/mesh.py``).
 ``bm25_scores.cuda_calls`` counts the calls made on CUDA tensors.
 """
 
@@ -229,4 +232,112 @@ class DevicePostings:
             terms, idf, k=k,
         )
         return _finalize(scores.cpu().numpy(), slots.cpu().numpy(),
+                         self.slot_to_doc)
+
+
+class ShardedBM25:
+    """Multi-device BM25: documents partition across the mesh, each shard
+    scores its slice with the same Okapi arithmetic (global IDF/avgdl
+    travel with the query), and the per-shard top-k merge on the merge
+    device.
+
+    Docs take slots in ascending id order, shard-major: within a shard
+    the top-k's lowest-slot tie rule is the lowest id, and the merge
+    flattens shard-major, preferring earlier shards (lower ids).
+    Together these are the host's ``(-score, id)`` membership rule,
+    exactly."""
+
+    def __init__(self, mesh, vocab, docs, tf, dl, rows_per_shard,
+                 avgdl, slot_to_doc, n_docs, df):
+        self.mesh = mesh
+        self.vocab = vocab
+        self.docs = docs            # per shard [T, P] local slots, pad = rows
+        self.tf = tf
+        self.dl = dl                # per shard [rows]
+        self.rows_per_shard = rows_per_shard
+        self.avgdl = avgdl
+        self.slot_to_doc = slot_to_doc  # [S * rows] host (0 pads)
+        self.n_docs = n_docs
+        self.df = df
+
+    @staticmethod
+    def build(postings, doc_len, mesh, max_postings_cap: int = 1 << 16):
+        """Pack the host index over ``mesh``'s shards; None when the
+        index is empty or a term's postings on one shard exceed the
+        cap."""
+        from ..parallel.mesh import shard_rows
+
+        n = len(doc_len)
+        if n == 0:
+            return None
+        n_shard = int(mesh.shape["shard"])
+        rows = -(-n // n_shard)
+        rows = ((rows + 127) // 128) * 128
+        all_docs = np.sort(np.fromiter(doc_len.keys(), np.int64, count=n))
+        slot_to_doc_full = np.zeros(n_shard * rows, np.int64)
+        slot_to_doc_full[:n] = all_docs
+        lengths_full = np.zeros(n_shard * rows, np.float32)
+        lengths_full[:n] = [doc_len[int(d)] for d in all_docs]
+        terms = sorted(postings.keys())
+        t = max(len(terms), 1)
+        placed = []
+        width = 1
+        for term in terms:
+            bucket = postings[term]
+            slot = np.searchsorted(all_docs, np.fromiter(
+                bucket.keys(), np.int64, count=len(bucket)))
+            freq = np.fromiter(bucket.values(), np.float32, count=len(bucket))
+            # per shard, in the bucket's order (the reference's fill)
+            order = np.argsort(slot // rows, kind="stable")
+            shard = slot[order] // rows
+            counts = np.bincount(shard, minlength=n_shard)
+            col = np.arange(len(order)) - np.repeat(
+                np.cumsum(counts) - counts, counts)
+            placed.append((shard, slot[order] % rows, col, freq[order]))
+            width = max(width, int(counts.max()))
+        if width > max_postings_cap:
+            return None
+        docs = np.full((n_shard, t, width), rows, np.int32)
+        tf = np.zeros((n_shard, t, width), np.float32)
+        df = np.zeros(t, np.int64)
+        for row, (shard, local, col, freq) in enumerate(placed):
+            df[row] = len(shard)
+            docs[shard, row, col] = local
+            tf[shard, row, col] = freq
+        devs = mesh.shard_devices
+        return ShardedBM25(
+            mesh,
+            {term: i for i, term in enumerate(terms)},
+            [torch.from_numpy(docs[s]).to(dev) for s, dev in enumerate(devs)],
+            [torch.from_numpy(tf[s]).to(dev) for s, dev in enumerate(devs)],
+            shard_rows(lengths_full, n_shard, devs),
+            rows,
+            float(lengths_full.sum() / n),
+            slot_to_doc_full,
+            n,
+            df,
+        )
+
+    def search(self, tokens: list[str], k: int):
+        """(doc ids, scores desc) — None when the query exceeds the
+        term pad (caller serves on the host path)."""
+        prepared = _prepare_terms(self.vocab, self.df, self.n_docs, tokens)
+        if prepared is None:
+            return None
+        terms, idf = prepared
+        if terms is None:
+            return np.empty(0, np.uint64), np.empty(0, np.float64)
+        from ..parallel.mesh import merge_topk
+
+        rows = self.rows_per_shard
+        scores, ids = [], []
+        for s in range(len(self.docs)):
+            top, idx = bm25_scores(
+                self.docs[s], self.tf[s], self.dl[s], self.avgdl,
+                terms, idf, k=min(k, rows),
+            )
+            scores.append(top)
+            ids.append(idx + s * rows)
+        top, slots = merge_topk(self.mesh.device, scores, ids, k)
+        return _finalize(top.cpu().numpy(), slots.cpu().numpy(),
                          self.slot_to_doc)

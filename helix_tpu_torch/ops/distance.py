@@ -14,8 +14,10 @@ Deliberate differences from the reference:
   toward the lower index, as ``lax.top_k`` does.
 - ``copy_to_host_async`` becomes a non-blocking copy into pinned host
   tensors plus a recorded CUDA event that ``finalize`` waits on.
-- ``topk_scores`` (the driver entry point's self-contained search) is
-  not ported yet.
+
+:func:`topk_scores` (the self-contained search of ``graft.entry``) and
+the mesh's per-shard scan (``parallel/sharded.py:_local_topk``) share one
+chunked scan with a running top-k, :func:`chunked_topk`.
 """
 
 from __future__ import annotations
@@ -67,6 +69,101 @@ def _coarse_dot(qs16: torch.Tensor, xs16: torch.Tensor) -> torch.Tensor:
     return qs16.float() @ xs16.float().T
 
 
+def _scores(qs_c: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """f32 scores of ``qs_c`` against ``block`` (both bf16: f32 sums of
+    bf16 products; both f32: a true f32 product, TF32 off)."""
+    if block.dtype == torch.bfloat16:
+        return _coarse_dot(qs_c, block)
+    require_fp32_matmul()
+    return qs_c.float() @ block.float().T
+
+
+def chunked_topk(
+    xs_c: torch.Tensor,       # [N, D] scan operand (bf16 or f32)
+    qs_c: torch.Tensor,       # [B, D] queries, same dtype
+    n_valid: int,
+    sq_norms: torch.Tensor,   # [N] f32 (l2 only)
+    *,
+    k: int,
+    chunk: int,
+    metric: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked scan with a running top-k: ``(scores [B, k], ids [B, k])``
+    descending (l2 scores are ``2 q.x - |x|^2``).  ``chunk`` is cut to a
+    divisor of N (:func:`pick_chunk`); the running state starts at
+    (-inf, id 0), so a row with fewer than k valid rows keeps id 0 in
+    its -inf slots, as the reference's ``lax.scan`` does.  ``k`` must not
+    exceed the chunk."""
+    n = xs_c.shape[0]
+    b = qs_c.shape[0]
+    chunk = pick_chunk(n, min(chunk, n))
+    best_s = torch.full((b, k), float("-inf"), device=xs_c.device)
+    best_i = torch.zeros((b, k), dtype=torch.int64, device=xs_c.device)
+    col_base = torch.arange(chunk, device=xs_c.device)
+    for start in range(0, n, chunk):
+        sims = _scores(qs_c, xs_c[start:start + chunk])
+        cols = start + col_base
+        if metric == "l2":
+            sims = 2.0 * sims - sq_norms[start:start + chunk][None, :]
+        sims = torch.where((cols < n_valid)[None, :], sims, float("-inf"))
+        s_chunk, i_local = _top_k(sims, k)
+        cat_s = torch.cat([best_s, s_chunk], dim=1)
+        cat_i = torch.cat([best_i, cols[i_local]], dim=1)
+        best_s, pos = _top_k(cat_s, k)
+        best_i = torch.gather(cat_i, 1, pos)
+    return best_s, best_i
+
+
+def topk_scores(
+    xs: torch.Tensor,         # [N, D] packed vectors (rows >= n_valid junk)
+    qs: torch.Tensor,         # [B, D] query batch
+    n_valid: int,
+    sq_norms: torch.Tensor,   # [N] squared norms of xs rows (l2)
+    *,
+    k: int,
+    chunk: int = 131072,
+    metric: str = "cosine",
+    bf16: bool = True,
+    rerank: int = 8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Self-contained top-k with a device-only re-rank (the reference's
+    ``topk_scores``): ``(distance [B, k], indices [B, k])`` ascending.
+    A single-shot scan when the ``[B, N]`` f32 scores fit
+    ``SINGLE_SHOT_BYTES``, else :func:`chunked_topk`; with ``bf16`` and
+    ``rerank > 1`` the ``rerank * k`` candidates re-score in f32."""
+    n, _ = xs.shape
+    b = qs.shape[0]
+    k_scan = min(max(k, rerank * k if (bf16 and rerank > 1) else k), n)
+    xs_c = xs.to(torch.bfloat16) if bf16 else xs
+    qs_c = qs.to(torch.bfloat16) if bf16 else qs
+    if b * n * 4 <= SINGLE_SHOT_BYTES:
+        sims = _scores(qs_c, xs_c)
+        if metric == "l2":
+            sims = 2.0 * sims - sq_norms[None, :]
+        cols = torch.arange(n, device=xs.device)
+        sims = torch.where((cols < n_valid)[None, :], sims, float("-inf"))
+        best_s, best_i = _top_k(sims, k_scan)
+    else:
+        best_s, best_i = chunked_topk(
+            xs_c, qs_c, n_valid, sq_norms, k=k_scan,
+            chunk=min(chunk, n), metric=metric,
+        )
+    if k_scan > k:
+        require_fp32_matmul()
+        exact = torch.einsum("bkd,bd->bk", xs[best_i].float(), qs.float())
+        if metric == "l2":
+            exact = 2.0 * exact - sq_norms[best_i]
+        exact = torch.where(torch.isfinite(best_s), exact, float("-inf"))
+        best_s, pos = _top_k(exact, k)
+        best_i = torch.gather(best_i, 1, pos)
+    if metric == "cosine":
+        dists = 1.0 - best_s
+    else:
+        q_sq = torch.sum(qs.float() ** 2, dim=1, keepdim=True)
+        dists = -best_s + q_sq
+    return dists, best_i
+
+
 def topk_resident(
     xs16: torch.Tensor,       # [N, D] bf16 resident matrix (coarse phase)
     xs32: torch.Tensor,       # [N, D] f32 resident matrix (re-rank)
@@ -104,24 +201,8 @@ def topk_resident(
     else:
         # Chunked scan with a running top-k merge: bounds the [B, chunk]
         # score buffer.
-        chunk = pick_chunk(n, min(chunk, n))
-        best_s = torch.full((b, k_scan), float("-inf"), device=xs16.device)
-        best_i = torch.zeros((b, k_scan), dtype=torch.int64,
-                             device=xs16.device)
-        for start in range(0, n, chunk):
-            block = xs16[start:start + chunk]
-            sims = _coarse_dot(qs16, block)
-            block_cols = cols[start:start + chunk]
-            if metric == "l2":
-                sims = 2.0 * sims - sq_norms[start:start + chunk][None, :]
-            sims = torch.where(
-                (block_cols < n_valid)[None, :], sims, float("-inf")
-            )
-            s_chunk, i_local = _top_k(sims, k_scan)
-            cat_s = torch.cat([best_s, s_chunk], dim=1)
-            cat_i = torch.cat([best_i, block_cols[i_local]], dim=1)
-            best_s, pos = _top_k(cat_s, k_scan)
-            best_i = torch.gather(cat_i, 1, pos)
+        best_s, best_i = chunked_topk(xs16, qs16, n_valid, sq_norms,
+                                      k=k_scan, chunk=chunk, metric=metric)
 
     require_fp32_matmul()
     cand = xs32[best_i]

@@ -199,25 +199,28 @@ def check_launch(name: str, rc: int) -> None:
         )
 
 
-def fused_topk(
+def fused_candidates(
     xs16: torch.Tensor,       # [N, D] bf16, rows padded to TILE
     xs32: torch.Tensor,       # [N', D] f32 (re-rank operand, N' >= n_valid)
     qs: torch.Tensor,         # [B, D] f32
     n_valid: int,
-    sq_norms: torch.Tensor,   # unused (cosine only); kept for API parity
     *,
     k: int,
     rerank: int = 8,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Drop-in for ``topk_resident``, cosine metric: fused packed
-    candidates + exact f32 re-rank.  Returns ``(dists, ids)`` ascending
-    by distance; overflow slots (fewer than k valid rows) carry id -1."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused step's core, shared by :func:`fused_topk` and the mesh's
+    per-shard search (``parallel/sharded.py:_local_fused``): packed
+    bucket winners from :func:`bucket_scores` in blocks of at most
+    ``MAX_QUERY_BLOCK`` queries, the top ``k_cand`` buckets, and their
+    exact f32 re-rank.  Returns ``(scores, ids, filled)``, each
+    ``[B, min(k, k_cand)]`` and descending by score; a slot whose bucket
+    held no valid row scores -inf, keeps the id its packed winner names
+    and is not ``filled``."""
     require_fp32_matmul()
     b_in = qs.shape[0]
     total_buckets = xs16.shape[0] // BUCKET
     k_cand = min(max(k, min(rerank * k, 512), 64), total_buckets)
-    out_d = []
-    out_i = []
+    out_s, out_i, out_f = [], [], []
     for lo in range(0, b_in, MAX_QUERY_BLOCK):
         chunk = qs[lo:lo + MAX_QUERY_BLOCK]
         b = chunk.shape[0]
@@ -236,23 +239,42 @@ def fused_topk(
         exact = torch.einsum("bkd,bd->bk", cand, chunk)
         valid = best_s > NEG_SENTINEL / 2
         exact = torch.where(valid, exact, float("-inf"))
-        # The bucket reduction yields at most k_cand candidates; a k
-        # beyond that pads with overflow slots (supports_fused routes
-        # that regime to topk_resident; this is the backstop).
-        k_top = min(k, k_cand)
-        top_s, top_pos = _top_k(exact, k_top)
-        top_i = torch.gather(best_i, 1, top_pos)
-        filled = torch.gather(valid, 1, top_pos)
-        top_i = torch.where(filled, top_i, -1)
-        if k_top < k:
-            pad = k - k_top
-            top_s = torch.nn.functional.pad(top_s, (0, pad), value=float("-inf"))
-            top_i = torch.nn.functional.pad(top_i, (0, pad), value=-1)
-        out_d.append((1.0 - top_s)[:b])
-        out_i.append(top_i[:b])
-    dists = out_d[0] if len(out_d) == 1 else torch.cat(out_d, dim=0)
-    ids = out_i[0] if len(out_i) == 1 else torch.cat(out_i, dim=0)
-    return dists, ids
+        # The bucket reduction yields at most k_cand candidates.
+        top_s, top_pos = _top_k(exact, min(k, k_cand))
+        out_s.append(top_s[:b])
+        out_i.append(torch.gather(best_i, 1, top_pos)[:b])
+        out_f.append(torch.gather(valid, 1, top_pos)[:b])
+    if len(out_s) == 1:
+        return out_s[0], out_i[0], out_f[0]
+    return torch.cat(out_s), torch.cat(out_i), torch.cat(out_f)
+
+
+def fused_topk(
+    xs16: torch.Tensor,       # [N, D] bf16, rows padded to TILE
+    xs32: torch.Tensor,       # [N', D] f32 (re-rank operand, N' >= n_valid)
+    qs: torch.Tensor,         # [B, D] f32
+    n_valid: int,
+    sq_norms: torch.Tensor,   # unused (cosine only); kept for API parity
+    *,
+    k: int,
+    rerank: int = 8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Drop-in for ``topk_resident``, cosine metric: fused packed
+    candidates + exact f32 re-rank (:func:`fused_candidates`).  Returns
+    ``(dists, ids)`` ascending by distance; overflow slots (fewer than k
+    valid rows) carry id -1."""
+    top_s, top_i, filled = fused_candidates(
+        xs16, xs32, qs, n_valid, k=k, rerank=rerank
+    )
+    top_i = torch.where(filled, top_i, -1)
+    k_top = top_s.shape[1]
+    if k_top < k:
+        # supports_fused routes k past the bucket count to
+        # topk_resident; this is the backstop.
+        pad = k - k_top
+        top_s = torch.nn.functional.pad(top_s, (0, pad), value=float("-inf"))
+        top_i = torch.nn.functional.pad(top_i, (0, pad), value=-1)
+    return 1.0 - top_s, top_i
 
 
 def supports_fused(n_rows_padded: int, dim_pad: int, metric: str,

@@ -30,8 +30,10 @@ Deliberate differences from the reference:
   and over the bucket winners, as ``fused_topk`` does).
 - The fused path serves a CUDA device with cosine rows, ``n >= TILE`` and
   ``dim_pad % 128 == 0``; the TPU's VMEM tile cap does not bind Hopper.
-- One device: the mesh search (``ShardedInt8Search``) is the multi-GPU
-  slice's.
+- :class:`ShardedInt8Search` (the mesh's int8 rung) runs
+  :func:`int8_coarse_topk` on each shard's device and merges on the
+  mesh's merge device (``parallel/mesh.py``); like the reference's, it
+  reaches no bucket-scores kernel.
 """
 
 from __future__ import annotations
@@ -338,6 +340,106 @@ class QuantizedResident:
         return native_rerank(
             matrix.data[:n], matrix.sq_norms[:n], qs, cand, k, metric
         )
+
+
+class ShardedInt8Search:
+    """Multi-device int8 coarse phase: rows shard across the mesh, each
+    shard runs the int8 product over its slice on its own device, and
+    the per-shard candidates merge on the merge device (the reference's
+    all-gather): the quantized rung of the residency ladder at mesh
+    scale.
+
+    With ``rerank_device=True`` each shard re-scores its own candidates
+    against a local f16 row copy before the merge (the precision model
+    of :func:`device_rerank_topk`), tombstones filtered by a sharded live
+    mask, so the merge carries f32-accumulated f16 re-rank scores and
+    the output is final ``(scores, ids)``, ids -1 where dead or ragged.
+    Returns ``(scores [B, k'], global ids [B, k'])`` on the merge
+    device, descending."""
+
+    def __init__(self, mesh, k: int, metric: str = "cosine",
+                 rerank_device: bool = False, k_out: int | None = None):
+        self.mesh = mesh
+        self.k = k                      # per-shard candidate pool width
+        self.k_out = k_out or k         # merged output width (device path)
+        self.metric = metric
+        self.rerank_device = rerank_device
+        self.n_shard = int(mesh.shape["shard"])
+
+    def _pad_rows(self, n: int) -> int:
+        rows = -(-n // self.n_shard)
+        return ((rows + 127) // 128) * 128
+
+    def shard_arrays(self, values: np.ndarray, scales: np.ndarray,
+                     sq_norms: np.ndarray):
+        """Pad and put each shard's rows on its device; returns
+        ``(xs_i8, scales, sq, n_valid)``, the first three per shard."""
+        from ..parallel.mesh import shard_rows
+
+        n = len(values)
+        total = self._pad_rows(n) * self.n_shard
+        pv = np.zeros((total, values.shape[1]), np.int8)
+        pv[:n] = values
+        ps = np.ones(total, np.float32)
+        ps[:n] = scales
+        pq = np.zeros(total, np.float32)
+        pq[:n] = sq_norms[:n]
+        devs = self.mesh.shard_devices
+        return (shard_rows(pv, self.n_shard, devs),
+                shard_rows(ps, self.n_shard, devs),
+                shard_rows(pq, self.n_shard, devs), n)
+
+    def shard_rerank_arrays(self, data_f32: np.ndarray,
+                            live_mask: np.ndarray):
+        """Per-shard f16 re-rank copy + uint8 live mask (padding dead),
+        matching :meth:`shard_arrays`'s padding."""
+        from ..parallel.mesh import shard_rows
+
+        n = len(data_f32)
+        total = self._pad_rows(n) * self.n_shard
+        xs16 = np.zeros((total, data_f32.shape[1]), np.float16)
+        xs16[:n] = data_f32
+        live = np.zeros(total, np.uint8)
+        live[:n] = live_mask[:n]
+        devs = self.mesh.shard_devices
+        return (shard_rows(xs16, self.n_shard, devs),
+                shard_rows(live, self.n_shard, devs))
+
+    def __call__(self, xs_i8, scales, sq, qs, n_valid: int,
+                 rerank_arrays: tuple | None = None):
+        rr = self.rerank_device
+        if rr and rerank_arrays is None:
+            raise ValueError(
+                "rerank_device searcher needs shard_rerank_arrays(...)"
+            )
+        from ..parallel.mesh import merge_topk
+
+        qs = torch.from_numpy(np.asarray(qs, np.float32))
+        scores, ids = [], []
+        for s, dev in enumerate(self.mesh.shard_devices):
+            rows = xs_i8[s].shape[0]
+            local_valid = min(max(int(n_valid) - s * rows, 0), rows)
+            q = qs.to(dev)
+            sims, idx = int8_coarse_topk(
+                xs_i8[s], scales[s], q, local_valid, sq[s],
+                k=min(self.k, rows), metric=self.metric,
+            )
+            if rr:
+                xs16, live = rerank_arrays[0][s], rerank_arrays[1][s]
+                require_fp32_matmul()
+                safe = idx.clamp(0, rows - 1)
+                sims = torch.einsum("bkd,bd->bk", xs16[safe].float(), q)
+                if self.metric == "l2":
+                    sims = 2.0 * sims - sq[s][safe]
+                ok = (idx >= 0) & (idx < local_valid) & (live[safe] != 0)
+                sims = torch.where(ok, sims, float("-inf"))
+            scores.append(sims)
+            ids.append(idx + s * rows)
+        top_s, top_i = merge_topk(self.mesh.device, scores, ids,
+                                  self.k_out if rr else self.k)
+        if rr:
+            top_i = torch.where(top_s > float("-inf"), top_i, -1)
+        return top_s, top_i
 
 
 # ---------------------------------------------------------------- fused

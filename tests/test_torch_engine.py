@@ -260,12 +260,24 @@ def test_multitenant_index_errors_and_empty_results_match():
     ("graph_shard_threshold", 1000),
 ])
 def test_port_engine_refuses_unported_knobs(knob, value, tmp_path):
-    """Knobs of unported slices (multi-GPU) raise; the residency
-    ladder's two reach the vector manager, and the persistence slice's
-    two open the data dir and its object-store mirror."""
-    if knob in ("hbm_budget_bytes", "quant_candidates"):
+    """Every knob is ported: the residency ladder's two and the mesh's
+    ``shard_threshold`` reach the vector manager (and its partitions),
+    ``graph_shard_threshold`` the executor (through its engine), and
+    the persistence slice's two open the data dir and its object-store
+    mirror."""
+    if knob in ("hbm_budget_bytes", "quant_candidates", "shard_threshold"):
         engine = PortEngine(device="cpu", **{knob: value})
         assert getattr(engine.vectors, knob) == value
+        engine.execute(create_index())
+        index = engine.vectors.indexes[("NodeVector", "Doc", "emb")]
+        assert getattr(index, knob) == value
+        assert getattr(index.partition_for(("",)), knob) == value
+        return
+    if knob == "graph_shard_threshold":
+        from helix_tpu_torch.engine.exec import Executor
+
+        engine = PortEngine(device="cpu", **{knob: value})
+        assert Executor(engine).engine.graph_shard_threshold == value
         return
     if knob in ("data_dir", "snapshot_store"):
         store = f"file://{tmp_path / value}" if knob == "snapshot_store" \
@@ -278,8 +290,6 @@ def test_port_engine_refuses_unported_knobs(knob, value, tmp_path):
         assert store is None or (tmp_path / value / "snapshot.bin").exists()
         engine.close()
         return
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        PortEngine(device="cpu", **{knob: value})
 
 
 def test_port_engine_needs_cuda_for_the_default_device(monkeypatch):

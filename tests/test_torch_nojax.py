@@ -7,7 +7,10 @@ imported, then imports every module of ``helix_tpu_torch`` (and
 the same under device-memory budgets that put the index on the int8
 rung (its host re-rank is the port's ``native``) and on the host-IVF
 rung, then a traversal on the device path, a BM25 search on device
-postings, a parse through the port's ``fastjson``, and the serving
+postings, a parse through the port's ``fastjson``, the mesh paths on a
+virtual mesh of 4 CPU devices (a sharded engine's exact and int8 reads,
+a sharded traversal and BM25 search, ``graft.dryrun_multichip(4)``), and
+the serving
 slice: an engine on a data dir writes and closes (checkpoint + WAL), a
 ``NativeGateway`` recovers it, installs a bundle over HTTP and answers a
 stored vector route on the fast path.  At the end no ``helix_tpu``
@@ -132,6 +135,37 @@ from helix_tpu_torch import fastjson
 parsed = fastjson.loads(b'{"v": [' + b", ".join([b"0.5"] * 40) + b"]}",
                         fast_arrays=True)
 assert list(parsed["v"]) == [0.5] * 40, parsed
+
+from helix_tpu_torch import graft
+from helix_tpu_torch.ops.bm25 import ShardedBM25
+from helix_tpu_torch.parallel import graph as sharded_graph
+from helix_tpu_torch.parallel import virtual_devices
+
+with virtual_devices("cpu", 4):
+    part = write_and_read(Engine(device="cpu", shard_threshold=1))
+    assert part._shard_state["kind"] == "exact", part._shard_state
+    # host re-rank: the exact $distance write_and_read checks (per shard
+    # the f16 copy fits, so auto would re-rank on the device in f16)
+    os.environ["HELIX_QUANT_RERANK"] = "host"
+    part = write_and_read(Engine(device="cpu", hbm_budget_bytes=1_000_000))
+    del os.environ["HELIX_QUANT_RERANK"]
+    assert part._shard_state["kind"] == "int8" and part.quant is None
+    engine.graph_shard_threshold = 1
+    part = engine.texts.indexes[("NodeText", "P", "body")].partitions[("",)]
+    part._device = None
+    out = engine.execute(request("read", [{"N": {"Ids": [1]}},
+                                          {"Out": "next"}, "Dedup", "Count"],
+                                 {}, {}, returns=["r"]))
+    assert out["r"] == 1, out
+    out = engine.execute(request("read", [{"TextSearchNodes": {
+        "label": "P", "property": "body",
+        "query_text": {"Expr": {"Param": "q"}},
+        "k": {"Expr": {"Param": "k"}}}}, {"ValueMap": ["$id", "x"]}],
+        {"q": "node 2", "k": 2}, {"q": "String", "k": "I64"}, returns=["r"]))
+    assert out["r"][0]["x"] == 2 and isinstance(part._device[1], ShardedBM25)
+    snap = engine.snapshots.get()
+    assert isinstance(snap.sharded_graph(("out",)), sharded_graph.ShardedGraph)
+graft.dryrun_multichip(4, "cpu")
 
 import json
 import shutil
