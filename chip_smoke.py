@@ -58,10 +58,26 @@ Phases, each failing the run on a bad check:
    int4 and IVF), ``$distance``, a dropped top hit, and which kernels
    and device ops ran; the IVF step also holds its probe cells to a
    float64 computation.
-7. Text: a 116,969-doc BM25 index through the engine
+7. l2 (``l2_phase``): SIFT1M's deployment, 1M x 128 Euclidean: rows of
+   the same generator mapped to SIFT's byte form (integers in [0, 255],
+   median norm ~515), ingested once into the engine of
+   ``NativeGateway(metric="l2")``.  The partition's ``hbm_budget_bytes``
+   is lowered step by step so each rung serves in turn: exact, int8 with
+   the f16 device re-rank, int8 with the host re-rank, int4, host-exact.
+   Each prints the rung taken, the first search after the change,
+   single-read p50 / p90 and the B=256 median and QPS, and holds recall@10
+   (tie-aware against a float64 oracle) to its floor (0.99, 0.98, 0.98,
+   0.95, 1.0) and ``$distance`` to a relative 1e-6.  No bucket-scores
+   kernel may launch (the reference fuses cosine only).  The exact rung's
+   device step is split with CUDA events: the scores, the full stable
+   sort of [256, 1,000,448] f32 that selects the candidates, and
+   ``topk_resident`` whole.  Then the gateway serves the exact index:
+   128 ``vfast`` requests on the fast path, equal to the in-process
+   answers.
+8. Text: a 116,969-doc BM25 index through the engine
    (``TextSearchNodes``): the device path's ids equal the host path's,
    scores within rtol 1e-5, both timed.
-8. Serve: the exact cell again, from disk and over HTTP
+9. Serve: the exact cell again, from disk and over HTTP
    (``serve_phase``): an engine with a data dir ingests 1M rows with the
    WAL on and checkpoints; the native gateway recovers it in process
    (recovery and the first search after it timed), installs a bundle over
@@ -69,17 +85,17 @@ Phases, each failing the run on a bad check:
    with 256 in flight (QPS) on the vector fast path into kernel 1, held
    to a numpy oracle, ``fast_requests`` and kernel 1's launch count,
    then takes a durable HTTP write that lives only in the WAL.
-9. Cluster (``cluster_phase``): ``python -m helix_tpu_torch.cli`` makes a
-   project of a primary and two replicas; ``start primary --disk``
-   recovers the serve phase's data dir (the write from the WAL) and
-   answers as the in-process gateway did, the two replicas seed from
-   it, and the native HA proxy (``HAFront``) spreads the same reads over
-   them, answered alike, while the card's free memory shows both
-   replicas' index copies; a durable write through the front reaches
-   both replicas; a replica's engine is SIGKILLed under load and its
-   supervisor restarts it; ``stop`` ends every process after the
-   primary's checkpoint.  Kernel 1 runs in those server processes, so
-   its launch count holds only the in-process phases.
+10. Cluster (``cluster_phase``): ``python -m helix_tpu_torch.cli`` makes a
+    project of a primary and two replicas; ``start primary --disk``
+    recovers the serve phase's data dir (the write from the WAL) and
+    answers as the in-process gateway did, the two replicas seed from
+    it, and the native HA proxy (``HAFront``) spreads the same reads over
+    them, answered alike, while the card's free memory shows both
+    replicas' index copies; a durable write through the front reaches
+    both replicas; a replica's engine is SIGKILLed under load and its
+    supervisor restarts it; ``stop`` ends every process after the
+    primary's checkpoint.  Kernel 1 runs in those server processes, so
+    its launch count holds only the in-process phases.
 
 The mesh steps (``helix_tpu_torch.parallel``) run on a virtual mesh of
 4 shards on ``cuda:0`` (over every card where there are more; every
@@ -568,17 +584,24 @@ def quant_kernel_phase(device: torch.device) -> dict:
 # ---------------------------------------------------------------- engine
 
 
-def make_dataset(n: int, d: int, n_queries: int, seed: int = 42):
-    """``bench.py``'s clustered cosine generator (1000 centers, sigma
-    0.3, rows and queries unit-normalised)."""
+def clustered(n: int, d: int, n_queries: int, seed: int = 42):
+    """``bench.py``'s clustered generator (1000 centers, sigma 0.3),
+    rows and queries as drawn."""
     rng = np.random.default_rng(seed)
     n_clusters = 1000
     centers = rng.normal(size=(n_clusters, d)).astype(np.float32)
     assign = rng.integers(0, n_clusters, size=n)
     data = centers[assign] + 0.3 * rng.normal(size=(n, d)).astype(np.float32)
-    data /= np.linalg.norm(data, axis=1, keepdims=True) + 1e-9
     queries = centers[rng.integers(0, n_clusters, size=n_queries)] \
         + 0.3 * rng.normal(size=(n_queries, d)).astype(np.float32)
+    return data, queries
+
+
+def make_dataset(n: int, d: int, n_queries: int, seed: int = 42):
+    """``bench.py``'s clustered cosine set: :func:`clustered`, rows and
+    queries unit-normalised."""
+    data, queries = clustered(n, d, n_queries, seed)
+    data /= np.linalg.norm(data, axis=1, keepdims=True) + 1e-9
     queries /= np.linalg.norm(queries, axis=1, keepdims=True) + 1e-9
     return data, queries
 
@@ -678,7 +701,11 @@ def new_engine(device: torch.device, **knobs):
     """An engine with the Doc.emb vector index and the vsearch route."""
     from helix_tpu_torch.engine import Engine
 
-    engine = Engine(device=device, **knobs)
+    return with_search_route(Engine(device=device, **knobs))
+
+
+def with_search_route(engine):
+    """``engine`` with the Doc.emb vector index and the vsearch route."""
     write(engine, [{"CreateIndex": {"spec": {"NodeVector": {
         "label": "Doc", "property": "emb", "tenant_property": None,
     }}, "if_not_exists": True}}], {}, {})
@@ -1004,6 +1031,332 @@ def ladder_phase(device: torch.device, n_rows: int = LADDER_ROWS) -> dict:
             else 0
         log(f"ladder {rung} at {rows} rows: launches {counts}, device "
             f"memory allocated {mem} bytes")
+    return out
+
+
+# -------------------------------------------------------------------- l2
+
+# SIFT1M's form: bench.py's clustered components x map to
+# min(255, rint(SIFT_SCALE * max(x, 0))), integers in [0, 255]; at 62
+# the median row norm is ~515, where SIFT's descriptors (unit vectors
+# scaled by 512, rounded to bytes) lie.
+SIFT_SCALE = 62.0
+# $distance on the l2 rungs: integer rows give integer distances up to
+# 128 * 255^2 < 2^24, exact in f32 on every rung (bf16 and f16 hold
+# integers <= 255 exactly); the relative bound leaves room for one f32
+# rounding of a sum in another order.
+L2_RTOL = 1e-6
+# The residency ladder over one 1M-row l2 index, walked by lowering the
+# partition's budget (bytes at N_ROWS rows, scaled with a rehearsal's
+# row count; per row at dim_pad 128 the exact copies take 768 B, int8
+# with the f16 re-rank copy 392 B, int8 132 B, int4 68 B), with each
+# rung's recall@10 floor.
+L2_RUNGS = (
+    ("exact", None, 0.99),
+    ("int8, device re-rank", 400_000_000, 0.98),
+    ("int8, host re-rank", 200_000_000, 0.98),
+    ("int4", 100_000_000, 0.95),
+    ("host-exact", 60_000_000, 1.0),
+)
+# B=256 batches per rung; a host-exact batch is a [256, N] f32 product
+# and selection on the host, so that rung runs fewer.
+L2_HOST_BATCHES = 3
+
+
+def sift_dataset(n: int, d: int, n_queries: int, seed: int = 42):
+    """SIFT-shaped l2 data: :func:`clustered`'s rows and queries mapped
+    component by component to ``min(255, rint(SIFT_SCALE * max(x, 0)))``
+    (float32 holding integers in [0, 255]), not normalised."""
+    data, queries = clustered(n, d, n_queries, seed)
+    for a in (data, queries):
+        np.maximum(a, 0.0, out=a)
+        a *= SIFT_SCALE
+        np.rint(a, out=a)
+        np.minimum(a, 255.0, out=a)
+    return data, queries
+
+
+def l2_kth(data: np.ndarray, queries: np.ndarray, k: int) -> np.ndarray:
+    """The exact (float64) k-th smallest squared distance of each query
+    over every row."""
+    x64 = data.astype(np.float64)
+    sq = np.einsum("nd,nd->n", x64, x64)
+    out = np.empty(len(queries))
+    for s in range(0, len(queries), 64):
+        q = queries[s:s + 64].astype(np.float64)
+        dist = sq[None, :] - 2.0 * (q @ x64.T) \
+            + np.einsum("bd,bd->b", q, q)[:, None]
+        out[s:s + 64] = np.partition(dist, k - 1, axis=1)[:, k - 1]
+    return out
+
+
+def l2_check_hits(data: np.ndarray, q: np.ndarray, rows: list, dists: list,
+                  kth: float, what: str) -> tuple[int, float]:
+    """K distinct rows, each ``$distance`` within L2_RTOL of the exact
+    float64 squared distance; returns how many lie within the oracle's
+    k-th distance (tie-aware recall: a row at the k-th distance is a
+    right answer) and the worst relative error."""
+    check(len(rows) == K and len(set(rows)) == K,
+          f"{what}: rows {rows}")
+    exact = ((data[rows].astype(np.float64) - q.astype(np.float64)) ** 2) \
+        .sum(axis=1)
+    err = float(np.max(np.abs(np.asarray(dists) - exact)
+                       / np.maximum(exact, 1.0)))
+    check(err <= L2_RTOL, f"{what}: $distance off by {err} (relative)")
+    return int(np.sum(exact <= kth)), err
+
+
+def l2_rung(part) -> str:
+    """The rung ``Partition.search_many_async`` takes, in its order."""
+    if part._use_host_exact():
+        return "host-exact"
+    if part._use_quant():
+        return ("int8, device re-rank" if part._quant_rerank_device()
+                else "int8, host re-rank")
+    if part._use_quant4():
+        return "int4"
+    return "exact"
+
+
+def l2_reads(engine, part, data: np.ndarray, queries: np.ndarray,
+             kth: np.ndarray, n_batches: int, what: str,
+             floor: float) -> tuple[dict, list]:
+    """N_PROBE single reads (``execute_stored`` and ``execute`` in turn)
+    and ``n_batches`` B=256 ``Partition.search_many`` batches over fresh
+    queries, held to the float64 oracle: recall@K tie-aware against
+    ``kth`` (the probe queries', then the first batch's), ``$distance``
+    within L2_RTOL; recall below ``floor`` fails.  Returns the metrics
+    and the singles' hits."""
+    probe = queries[:N_PROBE]
+    hits, latencies, right, worst = [], [], 0, 0.0
+    for j in range(N_PROBE):
+        t = time.perf_counter()
+        if j % 2:
+            out = engine.execute(search_request(probe[j]))
+        else:
+            out = engine.execute_stored("vsearch", {"q": probe[j].tolist(),
+                                                    "k": K})
+        latencies.append((time.perf_counter() - t) * 1e3)
+        rows, dists = rows_of(out["hits"])
+        good, err = l2_check_hits(data, probe[j], rows, dists, kth[j],
+                                  f"{what} read {j}")
+        right += good
+        worst = max(worst, err)
+        hits.append([(h["$id"], h["$distance"]) for h in out["hits"]])
+    recall = right / (N_PROBE * K)
+    batch_ms, rerank_ms = [], []
+    batch_right = 0
+    for b in range(n_batches):
+        qb = queries[N_PROBE + b * BATCH:N_PROBE + (b + 1) * BATCH]
+        with HostRerankClock() as clock:
+            t = time.perf_counter()
+            ids, dists = part.search_many(qb, K)
+            batch_ms.append((time.perf_counter() - t) * 1e3)
+        rerank_ms.append(clock.ms)
+        check(ids.shape == (BATCH, K) and np.isfinite(dists).all(),
+              f"{what}: search_many returned {ids.shape} / non-finite "
+              "distances")
+        if b == 0:
+            rows = np.vectorize(part.pos.__getitem__)(ids.astype(np.int64))
+            for j in range(BATCH):
+                good, err = l2_check_hits(
+                    data, qb[j], rows[j].tolist(), dists[j].tolist(),
+                    kth[N_PROBE + j], f"{what} batch row {j}")
+                batch_right += good
+                worst = max(worst, err)
+    batch_recall = batch_right / (BATCH * K)
+    median = float(np.median(batch_ms))
+    p50, p90 = (float(np.percentile(latencies, p)) for p in (50, 90))
+    res = {"recall": recall, "batch_recall": batch_recall,
+           "batch_ms": median, "qps": BATCH / median * 1e3,
+           "host_rerank_ms": float(np.median(rerank_ms)),
+           "batches": n_batches, "p50_ms": p50, "p90_ms": p90,
+           "max_rel_dist_err": worst}
+    log(f"l2 {what}: single reads p50 {p50:.3f} ms p90 {p90:.3f} ms "
+        f"(n={N_PROBE}), recall@{K} {recall:.4f}; search_many B={BATCH} "
+        f"median {median:.3f} ms (n={n_batches}) {res['qps']:.0f} QPS, "
+        f"recall@{K} {batch_recall:.4f}, host re-rank median "
+        f"{res['host_rerank_ms']:.3f} ms; max relative $distance error "
+        f"{worst:.3g}")
+    check(recall >= floor and batch_recall >= floor,
+          f"l2 {what}: recall@{K} {recall} / {batch_recall} < {floor}")
+    return res, hits
+
+
+def l2_sort_split(part, qb: np.ndarray, device: torch.device) -> dict:
+    """The exact rung's B=256 device step at the search's own shapes,
+    timed apart with CUDA events: the single-shot scores ``2 q.x -
+    |x|^2`` over every padded row, the full stable sort that selects
+    ``rerank * k_bucket`` candidates from them (``distance._top_k``), and
+    ``topk_resident`` whole (scores, sort, f32 re-rank)."""
+    from helix_tpu_torch.ops.distance import (SINGLE_SHOT_BYTES,
+                                              _coarse_dot, _top_k,
+                                              topk_resident)
+
+    matrix = part.matrix
+    xs16, sq = matrix.device_arrays()
+    xs32 = matrix.data_device()
+    qs = torch.from_numpy(matrix.prepare_queries(qb)).to(device)
+    n, rows = matrix.n, int(xs16.shape[0])
+    check(BATCH * rows * 4 <= SINGLE_SHOT_BYTES,
+          f"l2 exact: [{BATCH}, {rows}] scores take the chunked scan")
+    k_bucket = max(16, 1 << (K - 1).bit_length())  # search_packed_async's
+    k_scan = 8 * k_bucket
+    cols = torch.arange(rows, device=device)
+
+    def scores():
+        sims = 2.0 * _coarse_dot(qs.to(torch.bfloat16), xs16) - sq[None, :]
+        return torch.where((cols < n)[None, :], sims, float("-inf"))
+
+    sims = scores()
+    out = {"rows": rows, "k_scan": k_scan}
+    for name, fn, args, kw in (
+            ("scores_ms", scores, (), {}),
+            ("sort_ms", _top_k, (sims, k_scan), {}),
+            ("topk_resident_ms", topk_resident, (xs16, xs32, qs, n, sq),
+             {"k": k_bucket, "metric": "l2"})):
+        cuda_ms(fn, *args, **kw)  # warm-up
+        out[name] = float(np.median([cuda_ms(fn, *args, **kw)
+                                     for _ in range(5)]))
+    return out
+
+
+def l2_gateway_step(gateway, queries: np.ndarray, want: list,
+                    device: torch.device) -> dict:
+    """The exact l2 index served by ``NativeGateway(metric="l2")``:
+    N_PROBE sequential ``vfast`` requests on one keep-alive connection,
+    each riding the vector fast path (``fast_requests``, no interpreter
+    fallback) and answering exactly what the engine answered in process
+    (``$id`` and ``$distance``)."""
+    import http.client
+
+    gateway.start()
+    port = gateway.port
+    status, installed = http_json(port, "POST", "/v1/bundle", serve_bundle())
+    check(status == 200 and "vfast" in installed["installed"],
+          f"l2 gateway: bundle install {status} {installed}")
+    fallbacks: list = []
+    slow_fallback = gateway._respond_slow_fallback
+
+    def counted_fallback(*args, **kwargs):
+        fallbacks.append(args[0])
+        return slow_fallback(*args, **kwargs)
+
+    gateway._respond_slow_fallback = counted_fallback
+    fast0 = gateway.stats()["fast_requests"]
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT)
+    latencies = []
+    try:
+        for j, q in enumerate(queries[:N_PROBE]):
+            t = time.perf_counter()
+            status, out = http_json(port, "POST", "/v1/query/vfast",
+                                    {"q": q.tolist(), "k": K}, conn=conn)
+            latencies.append((time.perf_counter() - t) * 1e3)
+            got = [(h["$id"], h["$distance"]) for h in out["hits"]] \
+                if status == 200 else out
+            check(got == want[j], f"l2 gateway request {j}: {got} != "
+                  f"in process {want[j]}")
+    finally:
+        conn.close()
+        del gateway._respond_slow_fallback
+    fast = gateway.stats()["fast_requests"] - fast0
+    check(fast == N_PROBE and not fallbacks,
+          f"l2 gateway: fast_requests +{fast}, {len(fallbacks)} answered "
+          "by the interpreter")
+    p50, p90 = (float(np.percentile(latencies, p)) for p in (50, 90))
+    log(f"l2 gateway (NativeGateway(metric='l2') on {device}): vfast p50 "
+        f"{p50:.3f} ms p90 {p90:.3f} ms (n={N_PROBE}), answers equal to "
+        f"the in-process reads, fast_requests +{fast}")
+    return {"p50_ms": p50, "p90_ms": p90, "fast_requests": fast}
+
+
+def l2_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
+    """SIFT1M's deployment: ``n_rows`` x 128 SIFT-shaped rows
+    (:func:`sift_dataset`), Euclidean, k=10, B=256 batches and B=1
+    reads, served by ``NativeGateway(metric="l2")``'s engine.  One ingest;
+    the rungs are walked by lowering the partition's ``hbm_budget_bytes``
+    (L2_RUNGS, scaled with ``n_rows``), each checked for the rung it
+    took, recall@10 (tie-aware, float64 oracle) at its floor, relative
+    ``$distance``, the first search after the change, single-read p50 /
+    p90 and the B=256 median.  No bucket-scores kernel may launch: the
+    reference fuses cosine only.  The exact rung's sort is timed apart
+    (:func:`l2_sort_split`); then the gateway serves the exact index over
+    HTTP (:func:`l2_gateway_step`)."""
+    from helix_tpu_torch.server.native_gateway import NativeGateway
+
+    data, queries = sift_dataset(n_rows, DIM, N_PROBE + N_BATCHES * BATCH)
+    norms = np.linalg.norm(data, axis=1)
+    log(f"l2: {n_rows} x {DIM} SIFT-shaped rows (integers in [0, 255]), "
+        f"median row norm {np.median(norms):.1f}, zero components "
+        f"{np.mean(data == 0):.3f}")
+    t = time.perf_counter()
+    kth = l2_kth(data, queries[:N_PROBE + BATCH], K)
+    oracle_s = time.perf_counter() - t
+    # the engine's batch window off, as in the other phases' engines
+    # (the fast path batches in the gateway's vbatch loop either way)
+    gateway = NativeGateway(host="127.0.0.1", port=0, metric="l2",
+                            batch_window_ms=None, device=str(device))
+    out: dict = {"oracle_s": oracle_s}
+    try:
+        engine = with_search_route(gateway.engine)
+        out["ingest_s"] = ingest(engine, data, 0, n_rows)
+        part = doc_partition(engine)
+        check(part.metric == "l2" and part.matrix.n == n_rows,
+              f"l2: partition {part.metric} with {part.matrix.n} rows")
+        log(f"l2: ingest {n_rows} x {DIM}: {out['ingest_s']:.1f} s; oracle "
+            f"(float64 k-th distances) {oracle_s:.1f} s")
+        reset_launch_counts()
+        exact_hits = None
+        for rung, budget, floor in L2_RUNGS:
+            part.hbm_budget_bytes = None if budget is None \
+                else budget * n_rows // N_ROWS
+            taken = l2_rung(part)
+            log(f"l2 {rung}: budget {part.hbm_budget_bytes} bytes, rung "
+                f"taken {taken} (int4 recall gate admits: "
+                f"{part._quant4_recall_serving()})")
+            check(taken == rung, f"l2: budget {part.hbm_budget_bytes} took "
+                  f"{taken}, want {rung}")
+            t = time.perf_counter()
+            engine.execute_stored("vsearch", {"q": queries[0].tolist(),
+                                              "k": K})
+            first_ms = (time.perf_counter() - t) * 1e3
+            res, hits = l2_reads(
+                engine, part, data, queries, kth,
+                L2_HOST_BATCHES if rung == "host-exact" else N_BATCHES, rung,
+                floor)
+            res["first_ms"] = first_ms
+            log(f"l2 {rung}: first search after the change {first_ms:.1f} ms")
+            if rung == "exact":
+                exact_hits = hits
+                if device.type == "cuda":
+                    split = l2_sort_split(part, queries[N_PROBE:N_PROBE
+                                                        + BATCH], device)
+                    split["share_of_batch"] = split["sort_ms"] \
+                        / res["batch_ms"]
+                    res["split"] = split
+                    log(f"l2 exact B={BATCH} device step on "
+                        f"{card_name(device)}: scores {split['scores_ms']:.3f}"
+                        f" ms, stable sort of [{BATCH}, {split['rows']}] f32 "
+                        f"for top-{split['k_scan']} {split['sort_ms']:.3f} ms"
+                        f", topk_resident {split['topk_resident_ms']:.3f} ms;"
+                        f" the sort is {split['share_of_batch']:.1%} of the "
+                        f"search_many median")
+            out[rung] = res
+        counts = launch_counts()
+        check(not any(counts.values()),
+              f"l2: bucket-scores kernels launched: {counts}")
+        out["launches"] = counts
+        part.hbm_budget_bytes = None
+        check(l2_rung(part) == "exact", "l2: the budget did not lift")
+        out["gateway"] = l2_gateway_step(gateway, queries, exact_hits,
+                                         device)
+        counts = launch_counts()
+        check(not any(counts.values()),
+              f"l2 gateway: bucket-scores kernels launched: {counts}")
+        log(f"l2: bucket-scores launches over the phase {counts}")
+    finally:
+        gateway.stop()
     return out
 
 
@@ -2406,8 +2759,19 @@ def cluster_phase(device: torch.device, handoff: dict) -> dict:
         wait_for(lambda: not alive(supervisor), STOP_S, "the primary's exit")
         out["stop_s"] = time.perf_counter() - t
         _, again, _ = cli(proj, "stop", "primary")
+        # a replica holds no data dir, but tearing down its 1M-node engine
+        # can outlast the CLI's 10 s wait as the primary's checkpoint
+        # does: then stop returns 1, and the process must still go
+        out["replica_stop"] = {}
         for name in REPLICAS:
-            cli(proj, "stop", name)
+            supervisor = pid_in(state(name) / "server.pid")
+            t = time.perf_counter()
+            rc, text, _ = cli(proj, "stop", name, ok=False)
+            check(rc in (0, 1), f"stop {name}: {text}")
+            wait_for(lambda: not alive(supervisor), STOP_S, f"{name}'s exit")
+            out["replica_stop"][name] = (rc, time.perf_counter() - t)
+            if rc:
+                cli(proj, "stop", name)
         left = [pid for pid in pids if alive(pid)]
         check(not left, f"server processes left after stop: {left}")
         check(snapshot.stat().st_mtime_ns > snap_before,
@@ -2426,7 +2790,9 @@ def cluster_phase(device: torch.device, handoff: dict) -> dict:
             "still checkpointing when the CLI's wait ended"
         log(f"cluster: stop primary exited {out['stop_rc']} ({waited}), "
             f"the primary gone {out['stop_s']:.1f} s after the stop; stop "
-            f"again: {again.strip()!r}; snapshot written; no process left")
+            f"again: {again.strip()!r}; replicas (stop's exit code, "
+            f"seconds until gone) {out['replica_stop']}; snapshot written; "
+            f"no process left")
         log(f"cluster on {card_line}: primary direct {out['direct']}, "
             f"through the front over two replicas {out['front']}, in-process "
             f"gateway (serve phase) {handoff['in_process']}; resident host "
@@ -2524,6 +2890,9 @@ def run_phases() -> int:
     gc.collect()  # the exact engine's host rows (cycles keep them alive)
     graph_ops = timed("graph ops", graph_ops_phase, device, eng["first_rows"])
     ladder = timed("ladder", ladder_phase, device)
+    gc.collect()
+    l2 = timed("l2", l2_phase, device)
+    log(f"l2 on {card_line}: " + json.dumps(l2, default=float))
     gc.collect()
     text = timed("text", text_phase, device)
     gc.collect()

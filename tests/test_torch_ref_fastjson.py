@@ -1,0 +1,5 @@
+"""The reference's ``tests/test_fastjson.py`` on the port (``tests/ref_on_port.py``)."""
+
+from tests.ref_on_port import run_suite
+
+run_suite("fastjson", globals())
