@@ -30,7 +30,17 @@ Phases, each failing the run on a bad check:
    printed; the kernel, its plain version and the product-only
    ``torch._int_mm`` (on the unpacked codes for int4) are timed the same
    way, at B=256 and B=128.
-4. Engine (exact): ``Engine(device="cuda")`` ingests 1M x 128 clustered
+4. Bench (``bench_phase``): ``python bench_torch.py`` in a child process
+   at its defaults (1M x 128 cosine, B=256, k=10, 128 rounds in one CUDA
+   graph, the graph reads and the gateway on; the CPU HNSW baseline
+   skipped): its JSON line must show recall@10 >= 0.99, kernel 1 in
+   every timed graph once per search (its captured nodes, each launched
+   in a profiled replay; the script holds each graph's ids to an eager
+   search), ``device_batch_ms`` at or above the card's bound and only
+   finite numbers; the line is printed, and the launches its wrapper
+   counted in the eager windows join kernel 1's count.  Its graph-read
+   keys are the card's times for the graph ops cell.
+5. Engine (exact): ``Engine(device="cuda")`` ingests 1M x 128 clustered
    vectors (``bench.py``'s generator, seed 42) through ``ForEach AddN``
    write batches, then answers single-query reads through
    ``execute_stored`` and ``execute`` and 256-query
@@ -44,11 +54,11 @@ Phases, each failing the run on a bad check:
    (``VectorSearchNodes`` -> ``Out`` -> ``Dedup`` -> ``Count``) with
    ``HELIX_TRAVERSAL_BACKEND`` forced to ``device``, ``native``, then
    ``auto``: equal JSON on all three.
-5. Graph ops: ``bench.py``'s traversal shape (1M nodes, degree 16, 4
+6. Graph ops: ``bench.py``'s traversal shape (1M nodes, degree 16, 4
    labels): ``khop_mask`` / ``khop_count`` / ``hybrid_expand`` on the
-   card against ``helix_tpu_torch.native.bfs_khop``, masks and counts equal,
-   both sides timed.
-6. Ladder: ``Engine(device="cuda", hbm_budget_bytes=96 MiB)`` ingests 2M
+   card against ``helix_tpu_torch.native.bfs_khop``, masks and counts equal
+   (the bench phase times the same reads).
+7. Ladder: ``Engine(device="cuda", hbm_budget_bytes=96 MiB)`` ingests 2M
    rows of the same generator.  At 500,000 rows the int8 rung serves
    (kernel 2), with the host re-rank and then with
    ``HELIX_QUANT_RERANK=device``; at 1,000,000 rows the int4 rung
@@ -58,7 +68,7 @@ Phases, each failing the run on a bad check:
    int4 and IVF), ``$distance``, a dropped top hit, and which kernels
    and device ops ran; the IVF step also holds its probe cells to a
    float64 computation.
-7. l2 (``l2_phase``): SIFT1M's deployment, 1M x 128 Euclidean: rows of
+8. l2 (``l2_phase``): SIFT1M's deployment, 1M x 128 Euclidean: rows of
    the same generator mapped to SIFT's byte form (integers in [0, 255],
    median norm ~515), ingested once into the engine of
    ``NativeGateway(metric="l2")``.  The partition's ``hbm_budget_bytes``
@@ -74,10 +84,10 @@ Phases, each failing the run on a bad check:
    ``topk_resident`` whole.  Then the gateway serves the exact index:
    128 ``vfast`` requests on the fast path, equal to the in-process
    answers.
-8. Text: a 116,969-doc BM25 index through the engine
+9. Text: a 116,969-doc BM25 index through the engine
    (``TextSearchNodes``): the device path's ids equal the host path's,
    scores within rtol 1e-5, both timed.
-9. Serve: the exact cell again, from disk and over HTTP
+10. Serve: the exact cell again, from disk and over HTTP
    (``serve_phase``): an engine with a data dir ingests 1M rows with the
    WAL on and checkpoints; the native gateway recovers it in process
    (recovery and the first search after it timed), installs a bundle over
@@ -85,7 +95,7 @@ Phases, each failing the run on a bad check:
    with 256 in flight (QPS) on the vector fast path into kernel 1, held
    to a numpy oracle, ``fast_requests`` and kernel 1's launch count,
    then takes a durable HTTP write that lives only in the WAL.
-10. Cluster (``cluster_phase``): ``python -m helix_tpu_torch.cli`` makes a
+11. Cluster (``cluster_phase``): ``python -m helix_tpu_torch.cli`` makes a
     project of a primary and two replicas; ``start primary --disk``
     recovers the serve phase's data dir (the write from the WAL) and
     answers as the in-process gateway did, the two replicas seed from
@@ -137,6 +147,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# The bound of a kernel is the larger of its bytes over the memory rate
+# and its operations over the peak rate of their type (the H100 SXM data
+# sheet's), each input read once and each output written once.
+from helix_tpu_torch.card import (PEAK_BF16_PER_S, PEAK_INT8_PER_S, bound,
+                                  card_line as card)
+
 N_ROWS = 1_000_000
 DIM = 128
 BATCH = 256
@@ -169,15 +185,6 @@ N_TEXT_DOCS = 116_969
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def card_name(device: torch.device) -> str:
@@ -251,20 +258,6 @@ def time_sides(sides: dict, inputs: list, reps: int = KERNEL_REPS) -> dict:
         for name in names[r:] + names[:r]:
             times[name].append(cuda_ms(sides[name], *args, reps=reps))
     return {name: float(np.median(t)) for name, t in times.items()}
-
-
-# H100 SXM data-sheet peaks (dense): the bound of a kernel is the larger
-# of its bytes over the memory rate and its operations over the peak rate
-# of their type, each input read once and each output written once.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_PER_S = 989e12
-PEAK_INT8_PER_S = 1979e12
-
-
-def bound(n_bytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def unit_rows(n: int, d: int, gen: torch.Generator,
@@ -579,6 +572,73 @@ def quant_kernel_phase(device: torch.device) -> dict:
                      "bound_ms": b_ms, "bound_by": b_by,
                      "ms_b128": t128["kernel"]}
     return out
+
+
+# ---------------------------------------------------------------- bench
+
+BENCH_TIMEOUT_S = 600
+BENCH_RECALL = 0.99
+
+
+def numbers(value):
+    """Every number in a JSON value, depth first."""
+    if isinstance(value, bool):
+        return
+    if isinstance(value, (int, float)):
+        yield value
+    elif isinstance(value, dict):
+        for v in value.values():
+            yield from numbers(v)
+    elif isinstance(value, list):
+        for v in value:
+            yield from numbers(v)
+
+
+def bench_phase(device: torch.device, **env: str) -> dict:
+    """``python bench_torch.py`` as a child process through its real entry
+    point, at its defaults on the card (``env`` adds overrides: a CPU
+    rehearsal passes a small ``BENCH_N``), with the CPU HNSW baseline
+    skipped (its 1M build takes ~10 minutes).  Checks the line it prints
+    and returns it with kernel 1's launches in its eager windows (the
+    graphs' launches are checked per replay, not counted: the wrapper
+    sees only their capture)."""
+    script = Path(__file__).resolve().parent / "bench_torch.py"
+    args = [sys.executable, str(script)]
+    if device.type != "cuda":
+        args += ["--device", "cpu"]
+    else:
+        torch.cuda.empty_cache()  # the child shares the card
+    proc = subprocess.run(
+        args, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+        cwd=script.parent,
+        env=dict(os.environ, BENCH_SKIP_BASELINE="1", **env),
+    )
+    check(proc.returncode == 0, f"bench_torch.py exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    res = json.loads(line)
+    log(f"bench_torch.py on {card_name(device)}: {line}")
+    check(res["recall_at_10"] >= BENCH_RECALL,
+          f"bench: recall@10 {res['recall_at_10']} < {BENCH_RECALL}")
+    check(all(np.isfinite(v) for v in numbers(res)),
+          "bench: a number in the line is not finite")
+    if device.type == "cuda":
+        rounds = res["scan_timing"]["rounds"]
+        want = {"full": rounds, "half": rounds // 2, "chained": rounds}
+        graphs = res["graph_kernel_launches"]
+        check(graphs["captured"] == want
+              and graphs["profiled_replay"] == want,
+              f"bench: kernel 1 not once per search in the timed graphs: "
+              f"{graphs} (want {want})")
+        check("roofline_qps" in res, f"bench: no bound for {res['card']}")
+        bound_ms = res["batch"] / res["roofline_qps"] * 1e3
+        check(res["device_batch_ms"] >= bound_ms,
+              f"bench: {res['device_batch_ms']} ms per batch is below the "
+              f"bound {bound_ms} ms")
+        check(res.get("e2e_gateway_fast_path_requests", 0) > 0,
+              "bench: the gateway served nothing on its fast path: "
+              f"{res.get('e2e_gateway_note')}")
+    return {"launches": res["kernel_launches"], "line": res}
 
 
 # ---------------------------------------------------------------- engine
@@ -1389,12 +1449,6 @@ def check_device_ran(device: torch.device, ran: dict, ops: tuple,
     check(not missing, f"{what}: no CUDA calls of {missing} ({ran})")
 
 
-def wall_ms(fn, *args) -> float:
-    t = time.perf_counter()
-    fn(*args)
-    return (time.perf_counter() - t) * 1e3
-
-
 def graph_ops_phase(device: torch.device, seeds: list,
                     n: int = GRAPH_NODES) -> dict:
     """``bench.py``'s traversal shape (BASELINE configs[2] and [3]): a
@@ -1402,9 +1456,9 @@ def graph_ops_phase(device: torch.device, seeds: list,
     2-hop from 0.1% start masks kept by a 50% filter, and a 1-hop
     expansion of the exact search's top-k.  The port's ``khop_mask`` /
     ``khop_count`` / ``hybrid_expand`` on the device against
-    ``helix_tpu_torch.native.bfs_khop``: masks and counts equal.  Times: CUDA
-    events for the device side, resident and with the mask's H2D/D2H;
-    wall time for the native sweep."""
+    ``helix_tpu_torch.native.bfs_khop``: masks and counts equal.  The
+    card's times for these reads are ``bench_torch.py``'s (the bench
+    phase's ``traversal_2hop_*`` and ``hybrid_seed_expand_*`` keys)."""
     from helix_tpu_torch import native
     from helix_tpu_torch.ops import csr as C
 
@@ -1464,46 +1518,8 @@ def graph_ops_phase(device: torch.device, seeds: list,
     ran = counts_since(before)
     check_device_ran(device, ran, ("khop_mask",), "graph ops")
 
-    def device_2hop(start):
-        return C.khop_count(graph.neighbors, graph.edge_labels, start, 1, 2,
-                            keep)
-
-    def device_2hop_transfers(start_h):
-        start = torch.from_numpy(start_h).to(device)
-        mask = C.khop_mask(graph.neighbors, graph.edge_labels, start, 1, 2)
-        return (mask & keep).cpu().numpy()
-
-    def native_2hop(start_h):
-        return int(native_mask(start_h, 1, 2)[keep_h].sum())
-
-    def device_hybrid():
-        return C.hybrid_expand(graph.neighbors, graph.edge_labels, seed_t, -1,
-                               1, keep)[1].item()
-
-    def native_hybrid():
-        return int((native_mask(seed_h, -1, 1) & keep_h).sum())
-
-    timing = cuda_ms if device.type == "cuda" else wall_ms
-    device_2hop(starts[0])  # warm-up
-    native_2hop(starts_h[0])
-    res = {"device_ms": [], "device_xfer_ms": [], "native_ms": [],
-           "hybrid_device_ms": [], "hybrid_native_ms": []}
-    for r in range(8):
-        res["device_ms"].append(timing(device_2hop, starts[r % 4]))
-        res["device_xfer_ms"].append(timing(device_2hop_transfers,
-                                            starts_h[r % 4]))
-        res["native_ms"].append(wall_ms(native_2hop, starts_h[r % 4]))
-        res["hybrid_device_ms"].append(timing(device_hybrid))
-        res["hybrid_native_ms"].append(wall_ms(native_hybrid))
-    res = {k: float(np.median(v)) for k, v in res.items()}
-    log(f"graph ops timing (median of 8): labeled 2-hop + filter count: "
-        f"device {res['device_ms']:.3f} ms resident, "
-        f"{res['device_xfer_ms']:.3f} ms with mask H2D/D2H; native bfs_khop "
-        f"{res['native_ms']:.3f} ms.  hybrid 1-hop: device "
-        f"{res['hybrid_device_ms']:.3f} ms, native "
-        f"{res['hybrid_native_ms']:.3f} ms")
-    res["khop_mask_calls"] = ran["khop_mask"]
-    return res
+    return {"counts_2hop": counts, "hybrid_count": int(h_count),
+            "khop_mask_calls": ran["khop_mask"]}
 
 
 def edge_request(label: str, items: list) -> dict:
@@ -2876,6 +2892,7 @@ def run_phases() -> int:
 
     kern = {"bucket_scores": timed("kernel", kernel_phase, device)}
     kern.update(timed("quant kernels", quant_kernel_phase, device))
+    bench = timed("bench", bench_phase, device)
     eng = timed("engine", engine_phase, device)
     seconds["mesh exact + traversal"] = round(eng["mesh"]["seconds"], 1)
     # Derived from the two phases (kernel and fused step on the kernel
@@ -2917,10 +2934,11 @@ def run_phases() -> int:
         "exact": eng["mesh"], "int8": ladder["mesh int8"],
         "text": text["mesh"]}, default=float))
     # kernel 1's launches on each path that runs it, counted from 0 just
-    # before the path and read just after: the exact engine, the serve
-    # phase, the mesh
-    launches = {"bucket_scores": eng["launches"] + serve["launches"]
-                + eng["mesh"]["launches"], **ladder["launches"]}
+    # before the path and read just after: bench_torch.py's timed windows
+    # (in its own process), the exact engine, the serve phase, the mesh
+    launches = {"bucket_scores": bench["launches"] + eng["launches"]
+                + serve["launches"] + eng["mesh"]["launches"],
+                **ladder["launches"]}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

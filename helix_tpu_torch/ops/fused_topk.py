@@ -139,7 +139,9 @@ def bucket_scores(
     """``[N / BUCKET, B]`` f32 packed winners (see module docstring).
 
     CUDA tensors launch ``csrc/bucket_scores.cu`` on the current stream
-    and count the launch in ``bucket_scores.launches``; CPU tensors run
+    and count the launch in ``bucket_scores.launches`` (on a stream that
+    is capturing a CUDA graph nothing launches: the kernel becomes a node
+    of the graph, counted in ``bucket_scores.captured``); CPU tensors run
     :func:`bucket_scores_reference`.  Shapes the kernel does not take
     (:func:`bucket_kernel_refusal`) raise on either device, and so does
     anything else the kernel does not take."""
@@ -180,13 +182,27 @@ def bucket_scores(
             n_valid, stream,
         )
     check_launch("bucket_scores", rc)
-    with _LAUNCH_LOCK:  # searches may run on several threads
-        bucket_scores.launches += 1
+    count_launch(bucket_scores, xs16.device)
     return out
 
 
 bucket_scores.launches = 0
+bucket_scores.captured = 0
 _LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, device: torch.device) -> None:
+    """One more launch of ``wrapper``'s kernel, just issued on
+    ``device``'s current stream; where that stream is capturing a CUDA
+    graph nothing launches (the kernel becomes a node that launches at
+    each replay), so count one more ``wrapper.captured`` instead."""
+    with torch.cuda.device(device):
+        capturing = torch.cuda.is_current_stream_capturing()
+    with _LAUNCH_LOCK:  # searches may run on several threads
+        if capturing:
+            wrapper.captured += 1
+        else:
+            wrapper.launches += 1
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -44,13 +44,13 @@ import torch
 from .. import kernels
 from .distance import _round_up, _top_k, require_fp32_matmul
 from .fused_topk import (
-    _LAUNCH_LOCK,
     BUCKET,
     BUCKET_KERNEL_QUERIES,
     MAX_QUERY_BLOCK,
     MIN_QUERY_BLOCK,
     TILE,
     check_launch,
+    count_launch,
     kernel_refusal,
     mask_pack_reduce,
     pad_rows_for_fused,
@@ -479,11 +479,6 @@ def check_kernel_operands(name: str, operands: dict, dtypes: dict) -> None:
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
 
 
-def count_launch(wrapper) -> None:
-    with _LAUNCH_LOCK:  # searches may run on several threads
-        wrapper.launches += 1
-
-
 def i8_bucket_scores(
     xs_i8: torch.Tensor, q_i8: torch.Tensor, n_valid: int
 ) -> torch.Tensor:
@@ -521,11 +516,12 @@ def i8_bucket_scores(
             n_valid, stream,
         )
     check_launch("i8_bucket_scores", rc)
-    count_launch(i8_bucket_scores)
+    count_launch(i8_bucket_scores, xs_i8.device)
     return out
 
 
 i8_bucket_scores.launches = 0
+i8_bucket_scores.captured = 0
 
 
 def fused_coarse(bucket_scores_fn, n_rows: int, qs: torch.Tensor, *,

@@ -39,6 +39,7 @@ from .distance import _round_up, _top_k
 from .fused_topk import (
     BUCKET,
     check_launch,
+    count_launch,
     descale_packed,
     kernel_refusal,
     mask_pack_reduce,
@@ -50,7 +51,6 @@ from .quant import (
     _quantize_queries,
     _sq_device,
     check_kernel_operands,
-    count_launch,
     fused_coarse,
     fused_route,
     int_dots,
@@ -246,11 +246,12 @@ def i4_bucket_scores(
             out.data_ptr(), n, d, b, n_valid, stream,
         )
     check_launch("i4_bucket_scores", rc)
-    count_launch(i4_bucket_scores)
+    count_launch(i4_bucket_scores, packed.device)
     return out
 
 
 i4_bucket_scores.launches = 0
+i4_bucket_scores.captured = 0
 
 
 def int4_fused_coarse(

@@ -17,8 +17,8 @@ statement, in the reference's order.  ``PackedMatrix``'s host methods
 (growth, appends, overwrites, query preparation) in
 ``helix_tpu_torch/ops/distance.py`` equal the reference's.  The C++
 sources under ``helix_tpu_torch/native/`` equal the reference's byte
-for byte.  No module of the port, nor ``chip_smoke.py`` or
-``chip_ab.py``, imports anything of ``helix_tpu`` or ``jax``.
+for byte.  No module of the port, nor ``chip_smoke.py``, ``chip_ab.py``
+or ``bench_torch.py``, imports anything of ``helix_tpu`` or ``jax``.
 """
 
 import ast
@@ -282,7 +282,7 @@ def _imports(path: Path, package: str) -> list[str]:
 
 PORT_FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "helix_tpu_torch").rglob("*.py")
-) + ["chip_smoke.py", "chip_ab.py"]
+) + ["chip_smoke.py", "chip_ab.py", "bench_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES)

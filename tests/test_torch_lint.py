@@ -8,6 +8,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_TARGETS = ["helix_tpu_torch", "chip_smoke.py", "chip_ab.py",
+                "bench_torch.py",
                 *sorted(str(p.relative_to(REPO)) for p in
                         (REPO / "tests").glob("test_torch_*.py")),
                 "tests/ref_on_port.py"]
