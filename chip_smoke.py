@@ -11,7 +11,9 @@ Phases, each failing the run on a bad check:
    ``ptxas``' registers, spills and any ``C75xx`` note that ``wgmma`` was
    serialized, for every source) and the native host library
    (``helix_tpu_torch/native``: the quantized rungs' and host IVF's
-   re-rank, the traversal's native sweep).
+   re-rank, the traversal's native sweep).  The kernel sweeps' library
+   (kernels 4 and 5) builds in a background thread during the engine
+   phase's ingest; its seconds are on the ``phase seconds`` line.
 2. Kernel 1: ``bucket_scores`` against its plain PyTorch version at the
    main path's shapes (1M rows padded to 8192, D=128, B=256), at B=128
    (single reads) and at D=768 (queries streamed through the rings),
@@ -40,35 +42,53 @@ Phases, each failing the run on a bad check:
    finite numbers; the line is printed, and the launches its wrapper
    counted in the eager windows join kernel 1's count.  Its graph-read
    keys are the card's times for the graph ops cell.
-5. Engine (exact): ``Engine(device="cuda")`` ingests 1M x 128 clustered
-   vectors (``bench.py``'s generator, seed 42) through ``ForEach AddN``
-   write batches, then answers single-query reads through
+5. Engine (exact): ``Engine(device="cuda", data_dir=...)`` ingests 1M x
+   128 clustered vectors (``bench.py``'s generator, seed 42) through
+   ``ForEach AddN`` write batches with the WAL on (the one 1M ingest the
+   serve phase shares), then answers single-query reads through
    ``execute_stored`` and ``execute`` and 256-query
    ``Partition.search_many`` batches.  The answers hold recall@10 >= 0.99
    and exact ``$distance`` against a float32 numpy oracle, a dropped top
-   hit disappears, and the launch counts show that kernel 1 served.
-   Then the same engine takes 800k labeled edges through write batches
+   hit disappears, and the launch counts show that kernel 1 served.  A
+   checkpoint before the drop, copied, is the serve phase's data dir.
+   Then the same engine takes 400k labeled edges through write batches
    and answers set-reduced traversals (``N``/``NWhere`` -> ``Out`` /
    ``In`` / ``Both`` -> ``Where`` -> ``Dedup`` -> ``Count`` / ``Exists``,
    an ``OrderBy`` membership tail) and hybrid reads
    (``VectorSearchNodes`` -> ``Out`` -> ``Dedup`` -> ``Count``) with
    ``HELIX_TRAVERSAL_BACKEND`` forced to ``device``, ``native``, then
    ``auto``: equal JSON on all three.
-6. Graph ops: ``bench.py``'s traversal shape (1M nodes, degree 16, 4
+6. Sweeps (``sweep_phase``): kernels 4 and 5, the ports of
+   ``benchmarks/onepass_sweep.py`` and ``benchmarks/i8_sweep.py``, on one
+   1M x 128 corpus (``_corpus``, seed 42): both entry points' sweeps
+   (``helix_tpu_torch.benchmarks``), every variant (kernel 4's three at
+   ring depths 2, 4 and 8, kernel 5's seventeen), their JSON lines
+   printed, recall@10 >= 0.99 and equal to ``shipped``'s for kernel 4,
+   containment for kernel 5's variants that return ids, every
+   instantiation launched (counted from 0 around the two sweeps).  Then
+   each instantiation alone against its plain version, bit for bit
+   (kernel 5 on the sweep's operands, kernel 4 on rows of small integers
+   where every f32 sum is exact, at n_valid 1,000,000 and 999,963),
+   kernel 4 also within kernel 1's tolerance on the corpus and bit for
+   bit against kernel 1, ``gscale`` against kernel 2, the bf16 forms
+   against their int8 twins; each timed against its plain version and
+   the library call (``torch.matmul`` bf16 or ``torch._int_mm``), kernel
+   4 also at each ring depth beside kernel 1.
+7. Graph ops: ``bench.py``'s traversal shape (1M nodes, degree 16, 4
    labels): ``khop_mask`` / ``khop_count`` / ``hybrid_expand`` on the
    card against ``helix_tpu_torch.native.bfs_khop``, masks and counts equal
    (the bench phase times the same reads).
-7. Ladder: ``Engine(device="cuda", hbm_budget_bytes=96 MiB)`` ingests 2M
+8. Ladder: ``Engine(device="cuda", hbm_budget_bytes=96 MiB)`` ingests 1.5M
    rows of the same generator.  At 500,000 rows the int8 rung serves
    (kernel 2), with the host re-rank and then with
    ``HELIX_QUANT_RERANK=device``; at 1,000,000 rows the int4 rung
-   (kernel 3); at 2,000,000 rows the host-IVF rung (no kernel), with the
+   (kernel 3); at 1,500,000 rows the host-IVF rung (no kernel), with the
    probe router on auto, then ``HELIX_IVF_BACKEND=device``, then
    ``host``.  Each step checks its rung, recall@10 (>= 0.98 int8, >= 0.95
    int4 and IVF), ``$distance``, a dropped top hit, and which kernels
    and device ops ran; the IVF step also holds its probe cells to a
    float64 computation.
-8. l2 (``l2_phase``): SIFT1M's deployment, 1M x 128 Euclidean: rows of
+9. l2 (``l2_phase``): SIFT1M's deployment, 1M x 128 Euclidean: rows of
    the same generator mapped to SIFT's byte form (integers in [0, 255],
    median norm ~515), ingested once into the engine of
    ``NativeGateway(metric="l2")``.  The partition's ``hbm_budget_bytes``
@@ -84,18 +104,18 @@ Phases, each failing the run on a bad check:
    ``topk_resident`` whole.  Then the gateway serves the exact index:
    128 ``vfast`` requests on the fast path, equal to the in-process
    answers.
-9. Text: a 116,969-doc BM25 index through the engine
+10. Text: a 116,969-doc BM25 index through the engine
    (``TextSearchNodes``): the device path's ids equal the host path's,
    scores within rtol 1e-5, both timed.
-10. Serve: the exact cell again, from disk and over HTTP
-   (``serve_phase``): an engine with a data dir ingests 1M rows with the
-   WAL on and checkpoints; the native gateway recovers it in process
+11. Serve: the exact cell again, from disk and over HTTP
+   (``serve_phase``): the engine phase's checkpointed data dir (1M rows
+   ingested with the WAL on); the native gateway recovers it in process
    (recovery and the first search after it timed), installs a bundle over
    HTTP and answers 128 single requests (p50 / p90) and 4,096 requests
    with 256 in flight (QPS) on the vector fast path into kernel 1, held
    to a numpy oracle, ``fast_requests`` and kernel 1's launch count,
    then takes a durable HTTP write that lives only in the WAL.
-11. Cluster (``cluster_phase``): ``python -m helix_tpu_torch.cli`` makes a
+12. Cluster (``cluster_phase``): ``python -m helix_tpu_torch.cli`` makes a
     project of a primary and two replicas; ``start primary --disk``
     recovers the serve phase's data dir (the write from the WAL) and
     answers as the in-process gateway did, the two replicas seed from
@@ -141,6 +161,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -165,7 +186,7 @@ N_PROBE = 128  # p90 of the per-request latency has 12 samples past it
 N_BATCHES = 16
 # The ladder phase's budget and rows (steps: LADDER_STEPS).
 LADDER_BUDGET = 96 << 20
-LADDER_ROWS = 2_000_000
+LADDER_ROWS = 1_500_000  # cut from 2,000,000 to keep the run within 900 s
 DEVICE_RERANK_TOL = 2e-3  # f16 rows: |x| * 2^-11 per component
 # The graph ops phase: bench.py's traversal shape (BASELINE configs[2]).
 GRAPH_NODES = 1_000_000
@@ -173,10 +194,11 @@ GRAPH_DEGREE = 16
 GRAPH_LABELS = 4
 # Edges written into the exact phase's engine, ENGINE_DEGREE per source
 # node: the engine's write path sustained 15,400-25,100 edges/s on the
-# H100 machine's host, so 800k edges take 32-52 s (cut from 1.6M to keep
-# the whole run well inside its time limit once the serve phase came).
+# H100 machine's host, so 400k edges take 16-26 s (cut from 1.6M to 800k
+# once the serve phase came, then to 400k with the sweep phase, to keep
+# the whole run within 900 s of its 1,200 s limit).
 ENGINE_DEGREE = 4
-ENGINE_EDGES = 800_000
+ENGINE_EDGES = 400_000
 EDGE_CHUNK = 25_000
 # The largest corpus of the test generator whose most common word stays
 # within DevicePostings' cap of 65,536 postings.
@@ -400,9 +422,10 @@ def check_tie_order(xs16, xs32, sq, queries) -> None:
 
 
 def check_bitwise(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """Kernels 2 and 3 sum exact integers: equal bits or fail.  Returns
+    """Kernels 2-5 sum exact integers: equal bits or fail.  Returns
     the largest absolute difference (0.0 when equal)."""
-    torch.cuda.synchronize()
+    if got.is_cuda:
+        torch.cuda.synchronize()
     check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} vs "
           f"{tuple(want.shape)}")
     same = got.view(torch.int32) == want.view(torch.int32)
@@ -571,6 +594,184 @@ def quant_kernel_phase(device: torch.device) -> dict:
                      "plain_ms": t["plain"], "library_ms": t["library"],
                      "bound_ms": b_ms, "bound_by": b_by,
                      "ms_b128": t128["kernel"]}
+    return out
+
+
+# ---------------------------------------------------------------- sweeps
+
+# Kernel 4's ring depths (stages per consumer; 8 is the most that fit at
+# D=128, B=256) and kernel 5's variants: every one of both sweeps.
+SWEEP_DEPTHS = "2,4,8"
+I8_VARIANTS = ("shipped,bf16dot,bf16dot_tail,i32pack,dot_i8,dot_bf16,"
+               "scale2d,gscale,ep_astype,ep_scale,ep_pack,ep_mask,"
+               "ep_full_amk,amk,xT,full_noT,dotf32")
+SWEEP_RECALL = 0.99
+# kernel 4's entries in the kernels line: (variant, what it replaces)
+ONEPASS_REPLACES = {
+    "shipped": "helix_tpu/ops/fused_topk.py:151 _make_kernel (swapped by "
+               "benchmarks/onepass_sweep.py:172)",
+    "onepass": "benchmarks/onepass_sweep.py:34 _make_kernel_onepass",
+    "lastmask": "benchmarks/onepass_sweep.py:70 _make_kernel_lastmask",
+}
+
+
+def sweep_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
+    """Kernels 4 and 5: the two sweeps' entry points on one shared corpus
+    (``_corpus`` seed 42, the headline's), every variant, launches counted
+    from 0 just before and read just after; then each instantiation alone
+    against its plain version (bit for bit: kernel 5 on the sweep's own
+    operands, kernel 4 on rows of small integers, where every f32 sum is
+    exact; kernel 4 also within kernel 1's tolerance on the corpus and
+    bit for bit against kernel 1 there, ``gscale`` against kernel 2, the
+    bf16 forms against their int8 twins), at the main shape and with
+    n_valid in mid-bucket, and its time against its plain version's, the
+    library call's and its bound.  Returns the kernels line's entries."""
+    from helix_tpu_torch.benchmarks import i8_sweep as I8
+    from helix_tpu_torch.benchmarks import onepass_sweep as OP
+    from helix_tpu_torch.benchmarks.ladder import _corpus, _oracle
+    from helix_tpu_torch.ops import fused_topk as F
+    from helix_tpu_torch.ops import quant as Q
+
+    t = time.perf_counter()
+    data, queries = _corpus(n_rows, DIM, BATCH, 1)
+    oracle = _oracle(data, queries[:BATCH], K)
+    ops4 = OP.operands(data, DIM, device)
+    ops5 = I8.operands(data, DIM, device)
+    del data
+    log(f"sweeps: corpus, oracle and operands of {n_rows} x {DIM} in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    # -- the main path: both entry points' sweeps
+    wrappers = [*OP.KERNELS.values(), *I8.KERNELS.values(),
+                Q.i8_bucket_scores]
+    for w in wrappers:
+        w.launches = w.captured = 0
+    dev = ["--device", device.type, "--n", str(n_rows)]
+    line4, failed = OP.sweep(OP.parse_args(dev + ["--tiles", SWEEP_DEPTHS]),
+                             ops4, queries, oracle)
+    print(json.dumps(line4), flush=True)
+    check(not failed, f"onepass_sweep: {failed} failed")
+    line5, failed = I8.sweep(I8.parse_args(dev + ["--variants",
+                                                  I8_VARIANTS]),
+                             ops5, queries, oracle)
+    print(json.dumps(line5), flush=True)
+    check(not failed, f"i8_sweep: {failed} failed")
+    launches = {w: (w.launches, w.captured) for w in wrappers}
+    for row in line4["variants"]:
+        shipped = next(r for r in line4["variants"] if r["kernel"] ==
+                       "shipped" and r["ring_depth"] == row["ring_depth"])
+        check(row["recall_at_10"] >= SWEEP_RECALL and
+              row["recall_at_10"] == shipped["recall_at_10"],
+              f"onepass_sweep {row['kernel']}@{row['ring_depth']}: recall "
+              f"{row['recall_at_10']} (shipped {shipped['recall_at_10']})")
+    for row in line5["variants"]:
+        if row["variant"] not in I8.TIMING_ONLY:
+            check("containment_at_kcand" in row,
+                  f"i8_sweep {row['variant']}: no containment")
+    log(f"sweeps: launches (eager, captured) "
+        f"{ {getattr(w, 'name', 'i8_bucket_scores'): c for w, c in launches.items()} }")
+    if device.type == "cuda":
+        for w, (eager, captured) in launches.items():
+            check(eager > 0 and captured > 0,
+                  f"{getattr(w, 'name', w)} was not launched by the sweeps")
+
+    # -- each instantiation alone: against its plain version, then timed
+    out = {"launches_i8_bucket_scores": launches[Q.i8_bucket_scores][0]}
+    gen = torch.Generator(device=device).manual_seed(31)
+    n_pad, xs16 = ops4["n_pad"], ops4["xs16"]
+    q16 = [unit_rows(BATCH, DIM, gen, device) for _ in range(KERNEL_RUNS)]
+    n_mid = n_rows - 37
+    ints = torch.randint(-8, 9, (n_pad, DIM), generator=gen, device=device
+                         ).to(torch.bfloat16)
+    q_ints = torch.randint(-8, 9, (BATCH, DIM), generator=gen, device=device
+                           ).to(torch.bfloat16)
+    kernel1 = F.bucket_scores(xs16, q16[0], n_rows)
+    sims = masked_sims(xs16, q16[0], n_rows)
+    bound4 = OP.kernel_bound(n_pad, DIM, BATCH, device) or (None, None)
+    depths = [int(d) for d in SWEEP_DEPTHS.split(",")]
+    for name, kernel in OP.KERNELS.items():
+        err = 0.0
+        for depth in depths:
+            got = kernel(xs16, q16[0], n_rows, depth=depth)
+            check_bitwise(f"{name}@{depth} against kernel 1", got, kernel1)
+            err = max(err, compare_packed(got, F.bucket_scores_reference(
+                xs16, q16[0], n_rows), sims, TOL))
+            for nv in (n_rows, n_mid):
+                check_bitwise(f"{name}@{depth} n_valid={nv}",
+                              kernel(ints, q_ints, nv, depth=depth),
+                              kernel.reference(ints, q_ints, nv))
+        t = time_sides({"kernel": kernel, "plain": kernel.reference,
+                        "library": lambda xs, qs, nv: torch.matmul(xs, qs.T)},
+                       [(xs16, q, n_rows) for q in q16])
+        by_depth = time_sides({f"ring {d}": (lambda xs, qs, nv, d=d:
+                                             kernel(xs, qs, nv, depth=d))
+                               for d in depths} | {"kernel 1": F.bucket_scores},
+                              [(xs16, q, n_rows) for q in q16])
+        log(f"kernel onepass_sweep/{name} N={n_pad} D={DIM} B={BATCH}: "
+            f"{t['kernel']:.4f} ms (plain {t['plain']:.4f} ms, torch.matmul "
+            f"{t['library']:.4f} ms, bound {bound4[0]} ms by {bound4[1]}); "
+            f"bitwise equal to kernel 1 and, on rows of small integers, to "
+            f"its plain version at n_valid {n_rows} and {n_mid}, at ring "
+            f"depths {SWEEP_DEPTHS}; max unpacked |err| {err:.3g} against the "
+            f"plain version; by depth "
+            f"{ {k: round(v, 4) for k, v in by_depth.items()} }")
+        out[f"onepass_sweep/{name}"] = {
+            "source": "helix_tpu_torch/csrc/sweep_bucket_scores.cu",
+            "replaces": ONEPASS_REPLACES[name],
+            "launches": launches[kernel][0], "max_abs_err": err,
+            "ms": t["kernel"], "plain_ms": t["plain"],
+            "library_ms": t["library"], "bound_ms": bound4[0],
+            "bound_by": bound4[1]}
+    del ints, q_ints, kernel1, sims
+
+    q_i8 = [Q._quantize_queries(q.float())[0] for q in q16]
+    codes16 = ops5["xs_i8"].to(torch.bfloat16)  # the bf16 library operand
+    operand = {"row": ops5["xscales"], "row_unused": ops5["xscales"],
+               "bucket": ops5["bscales"], "none": None}
+    outputs = {}
+    for name, kernel in I8.KERNELS.items():
+        body = kernel.body
+        xs = ops5["xs_i8b" if body.scale == "bucket" else
+                  "xs_i8g" if name == "gscale" else "xs_i8"]
+        sc = operand[body.scale]
+
+        def args(q, nv, xs=xs, sc=sc, bf16=body.dot == "bf16"):
+            return (xs, q.to(torch.bfloat16) if bf16 else q, sc, nv)
+
+        got = kernel(*args(q_i8[0], n_rows))
+        err = check_bitwise(f"i8_sweep/{name}", got,
+                            kernel.reference(*args(q_i8[0], n_rows)))
+        err = max(err, check_bitwise(
+            f"i8_sweep/{name} n_valid={n_mid}", kernel(*args(q_i8[1], n_mid)),
+            kernel.reference(*args(q_i8[1], n_mid))))
+        outputs[name] = got
+        if body.dot == "bf16":
+            library = lambda xs, q, sc, nv: torch.matmul(codes16, q.T)  # noqa: E731
+        else:
+            library = lambda xs, q, sc, nv: torch._int_mm(xs, q.t())  # noqa: E731
+        t = time_sides({"kernel": kernel, "plain": kernel.reference,
+                        "library": library},
+                       [args(q, n_rows) for q in q_i8])
+        b_ms, b_by = I8.kernel_bound(body, n_pad, DIM, BATCH, device) or (
+            None, None)
+        log(f"kernel i8_sweep/{name} ({body.entry}) N={n_pad} D={DIM} "
+            f"B={BATCH}: {t['kernel']:.4f} ms (plain {t['plain']:.4f} ms, "
+            f"{'torch.matmul bf16' if body.dot == 'bf16' else 'torch._int_mm'}"
+            f" {t['library']:.4f} ms, bound {b_ms} ms by {b_by}); bitwise "
+            f"equal to its plain version at n_valid {n_rows} and {n_mid}")
+        out[f"i8_sweep/{name}"] = {
+            "source": f"helix_tpu_torch/csrc/{body.source}",
+            "replaces": body.replaces, "launches": launches[kernel][0],
+            "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
+            "library_ms": t["library"], "bound_ms": b_ms, "bound_by": b_by}
+    check_bitwise("i8_sweep/gscale against kernel 2", outputs["gscale"],
+                  Q.i8_bucket_scores(ops5["xs_i8g"], q_i8[0], n_rows))
+    for bf16, s8 in (("bf16dot", "scale2d"), ("bf16dot_tail", "scale2d"),
+                     ("dot_bf16", "dot_i8")):
+        check_bitwise(f"i8_sweep/{bf16} against {s8}", outputs[bf16],
+                      outputs[s8])
+    log("sweeps: gscale equals kernel 2, bf16dot and bf16dot_tail equal "
+        "scale2d, dot_bf16 equals dot_i8, bit for bit")
     return out
 
 
@@ -922,13 +1123,46 @@ def check_drop(engine, part, q: np.ndarray, rows_before: list,
     return top_row
 
 
-def engine_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
-    data, queries = make_dataset(n_rows, DIM, N_PROBE + N_BATCHES * BATCH)
+def engine_phase(device: torch.device, n_rows: int = N_ROWS,
+                 while_ingesting=None) -> dict:
+    """The exact cell: ``n_rows`` ingested once, with the WAL on, into an
+    engine with a data dir (``while_ingesting()``, if given, is started
+    just before: the sweep library's build), its reads, a checkpoint
+    whose data dir the serve phase recovers (a copy, returned under
+    ``"serve"``; the drop, the edges and the mesh step that follow write
+    only to this engine's own WAL), the graph reads and the mesh step."""
+    import shutil
+    import tempfile
+
+    # the serve phase's load takes these queries too
+    data, queries = make_dataset(n_rows, DIM,
+                                 N_PROBE + max(N_BATCHES * BATCH, N_LOAD))
+    tmp = tempfile.mkdtemp(prefix="helix-engine-")
+    serve_tmp = tempfile.mkdtemp(prefix="helix-serve-")
+    try:
+        return engine_steps(device, n_rows, data, queries,
+                            os.path.join(tmp, "data"),
+                            os.path.join(serve_tmp, "data"), while_ingesting)
+    except BaseException:
+        shutil.rmtree(serve_tmp, ignore_errors=True)
+        raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def engine_steps(device: torch.device, n_rows: int, data: np.ndarray,
+                 queries: np.ndarray, data_dir: str, serve_dir: str,
+                 while_ingesting) -> dict:
+    import shutil
+
     # The mesh knobs are inert on a one-device mesh: the mesh step below
     # sets a virtual mesh to engage them.
-    engine = new_engine(device, shard_threshold=1, graph_shard_threshold=1)
+    engine = new_engine(device, data_dir=data_dir, shard_threshold=1,
+                        graph_shard_threshold=1)
+    if while_ingesting is not None:
+        while_ingesting()
     ingest_s = ingest(engine, data, 0, n_rows)
-    log(f"ingest {n_rows} x {DIM}: {ingest_s:.1f} s "
+    log(f"ingest {n_rows} x {DIM} with the WAL on: {ingest_s:.1f} s "
         f"({n_rows / ingest_s:.0f} docs/s)")
     part = doc_partition(engine)
     matrix = part.matrix
@@ -944,6 +1178,20 @@ def engine_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
     log(f"H2D upload (bf16 + f32 copies of {matrix.n} rows): {upload_s:.3f} s")
     res = serve_reads(engine, part, queries, [], recall_floor=0.99,
                       dist_tol=TOL, what="exact")
+    # The serve phase's data dir: this state (the rows as ingested, no
+    # drop, no edge), checkpointed and copied.
+    t = time.perf_counter()
+    engine.checkpoint()
+    checkpoint_s = time.perf_counter() - t
+    shutil.copytree(data_dir, serve_dir)
+    snapshot_bytes = os.path.getsize(os.path.join(serve_dir, "snapshot.bin"))
+    log(f"engine phase: checkpoint {checkpoint_s:.2f} s, snapshot "
+        f"{snapshot_bytes} bytes, copied for the serve phase in "
+        f"{time.perf_counter() - t - checkpoint_s:.2f} s")
+    res["serve"] = {"tmp": os.path.dirname(serve_dir), "data_dir": serve_dir,
+                    "n_rows": n_rows, "queries": queries,
+                    "ingest_s": ingest_s, "checkpoint_s": checkpoint_s,
+                    "snapshot_bytes": snapshot_bytes}
     dead = [check_drop(engine, part, queries[0], res["first_rows"], "exact")]
     counts = launch_counts()
     check_only_launched(device, counts, "bucket_scores", "engine phase")
@@ -955,16 +1203,17 @@ def engine_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
     t = time.perf_counter()
     res["mesh"] = mesh_engine_step(engine, part, queries, dead, device, res)
     res["mesh"]["seconds"] = time.perf_counter() - t
+    engine.persistence.close()  # no checkpoint: its dir is removed
     return res
 
 
 # The ladder's steps: (rows reached, rung, knob, its values).  Under the
 # 96 MiB budget at dim_pad 128: 500,000 rows fit int8 codes (66 MB) but
 # not the exact copies; 1,000,000 rows fit packed int4 (68 MB) but not
-# int8; 2,000,000 rows fit no device rung (int4 136 MB): host IVF.
+# int8; 1,500,000 rows fit no device rung (int4 102 MB): host IVF.
 LADDER_STEPS = (
-    (LADDER_ROWS // 4, "int8", "HELIX_QUANT_RERANK", ("auto", "device")),
-    (LADDER_ROWS // 2, "int4", None, ("auto",)),
+    (LADDER_ROWS // 3, "int8", "HELIX_QUANT_RERANK", ("auto", "device")),
+    (2 * LADDER_ROWS // 3, "int4", None, ("auto",)),
     (LADDER_ROWS, "ivf", "HELIX_IVF_BACKEND", ("auto", "device", "host")),
 )
 LADDER_KERNEL = {"int8": "i8_bucket_scores", "int4": "i4_bucket_scores",
@@ -996,9 +1245,9 @@ def check_probe_cells(part, queries: np.ndarray, what: str) -> float:
 
 def ladder_phase(device: torch.device, n_rows: int = LADDER_ROWS) -> dict:
     """The residency ladder under a device-memory budget: one engine
-    ingests ``n_rows`` of the engine phase's generator; at a quarter of
+    ingests ``n_rows`` of the engine phase's generator; at a third of
     them the int8 rung serves (host re-rank, then
-    ``HELIX_QUANT_RERANK=device``), at half the int4 rung, at all of
+    ``HELIX_QUANT_RERANK=device``), at two thirds the int4 rung, at all of
     them the host-IVF rung (probe router on auto, then
     ``HELIX_IVF_BACKEND=device``, then ``host``).  A CPU rehearsal at a
     smaller ``n_rows`` scales the budget with it."""
@@ -2058,7 +2307,6 @@ def http_load(port: int, bodies: list, connections: int,
     from the first write to the last response and ``(status, body
     bytes)`` per request."""
     import socket
-    import threading
 
     reqs = [b"POST /v1/query/vfast HTTP/1.1\r\nHost: x\r\nContent-Type: "
             b"application/json\r\nContent-Length: " + str(len(b)).encode()
@@ -2166,13 +2414,13 @@ def durable_write(port: int, i: int, vec: list) -> int:
     return wrote["d"][0]["$id"]
 
 
-def serve_phase(device: torch.device,
-                n_rows: int = N_ROWS) -> tuple[dict, dict]:
+def serve_phase(device: torch.device, shared: dict) -> tuple[dict, dict]:
     """The HTTP front door on the exact cell, from disk.
 
-    1. ``Engine(device, data_dir)`` ingests ``n_rows`` through ``ForEach
-       AddN`` batches with the WAL on (default fsync), checkpoints and
-       closes its WAL.
+    1. The engine phase's engine ingested ``n_rows`` through ``ForEach
+       AddN`` batches with the WAL on (default fsync), served its reads
+       and checkpointed: ``shared`` holds a copy of that data dir
+       (``engine_phase``'s ``"serve"``), its queries and numbers.
     2. ``NativeGateway(data_dir=...)`` recovers it (timed), answers a
        first search (timed: the device arrays are rebuilt), installs a
        bundle over HTTP whose ``vfast`` route rides the vector fast path,
@@ -2189,30 +2437,22 @@ def serve_phase(device: torch.device,
     the data dir (not deleted), the queries and the in-process answers
     to each of them and to the new vector's read."""
     import shutil
-    import tempfile
 
     from helix_tpu_torch.server.native_gateway import NativeGateway
 
-    data, queries = make_dataset(n_rows, DIM, N_PROBE + N_LOAD)
-    tmp = tempfile.mkdtemp(prefix="helix-serve-")
-    data_dir = os.path.join(tmp, "data")
-    snapshot = os.path.join(data_dir, "snapshot.bin")
-    out: dict = {}
+    tmp, data_dir, n_rows = (shared[key] for key in ("tmp", "data_dir",
+                                                     "n_rows"))
+    queries = shared["queries"]
+    check(len(queries) >= N_PROBE + N_LOAD, "the shared queries are too few")
+    out = {key: shared[key] for key in ("ingest_s", "checkpoint_s",
+                                        "snapshot_bytes")}
     gateway = None
     try:
-        engine = new_engine(device, data_dir=data_dir)
-        out["ingest_s"] = ingest(engine, data, 0, n_rows)
-        t = time.perf_counter()
-        engine.checkpoint()
-        out["checkpoint_s"] = time.perf_counter() - t
-        out["snapshot_bytes"] = os.path.getsize(snapshot)
-        engine.persistence.close()
-        del engine
-        gc.collect()
-        log(f"serve: ingest {n_rows} x {DIM} with the WAL on "
-            f"{out['ingest_s']:.1f} s ({n_rows / out['ingest_s']:.0f} "
-            f"docs/s); checkpoint {out['checkpoint_s']:.2f} s, snapshot "
-            f"{out['snapshot_bytes']} bytes")
+        log(f"serve: the engine phase's ingest of {n_rows} x {DIM} with the "
+            f"WAL on {out['ingest_s']:.1f} s "
+            f"({n_rows / out['ingest_s']:.0f} docs/s); checkpoint "
+            f"{out['checkpoint_s']:.2f} s, snapshot {out['snapshot_bytes']} "
+            "bytes")
 
         # -- 2. in process
         t = time.perf_counter()
@@ -2534,7 +2774,6 @@ def cluster_phase(device: torch.device, handoff: dict) -> dict:
     power limit."""
     import shutil
     import signal
-    import threading
 
     from helix_tpu_torch import kernels
     from helix_tpu_torch.server.ha_front import HAFront
@@ -2848,6 +3087,24 @@ KERNELS = (
 )
 
 
+def print_ptxas(sources) -> None:
+    """``ptxas``' register, spill and ``C75xx`` (wgmma serialized) lines
+    of the last build of ``sources``, each distinct line once per source
+    with the number of kernels that printed it."""
+    from collections import Counter
+
+    from helix_tpu_torch import kernels
+
+    for source in sources:
+        lines = Counter(
+            line.strip() for line in
+            kernels.BUILD_LOG.get(source.name, "").splitlines()
+            if any(key in line for key in ("registers", "spill", "C75",
+                                           "warning")))
+        for line, count in lines.items():
+            log(f"ptxas {source.name} ({count}x): {line}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2873,11 +3130,7 @@ def run_phases() -> int:
     kernels.load()
     log(f"kernel build + load: {time.perf_counter() - t:.1f} s "
         f"({kernels.library_path().name})")
-    for source, text in kernels.BUILD_LOG.items():
-        for line in text.splitlines():
-            if any(key in line for key in ("registers", "spill", "C75",
-                                           "warning")):
-                log(f"ptxas {source}: {line.strip()}")
+    print_ptxas(kernels.SOURCES)
     t = time.perf_counter()
     native.load()
     log(f"native host library build + load: {time.perf_counter() - t:.1f} s")
@@ -2893,8 +3146,30 @@ def run_phases() -> int:
     kern = {"bucket_scores": timed("kernel", kernel_phase, device)}
     kern.update(timed("quant kernels", quant_kernel_phase, device))
     bench = timed("bench", bench_phase, device)
-    eng = timed("engine", engine_phase, device)
+    # The sweep library builds in the background during the engine
+    # phase's ingest (host work that nothing here times against the card).
+    sweep_build: dict = {}
+
+    def build_sweeps() -> None:
+        t = time.perf_counter()
+        try:
+            kernels.load_sweep()
+        except BaseException as exc:  # noqa: BLE001 -- raised below
+            sweep_build["error"] = exc
+        sweep_build["seconds"] = time.perf_counter() - t
+
+    build_thread = threading.Thread(target=build_sweeps, daemon=True)
+    eng = timed("engine", engine_phase, device, N_ROWS, build_thread.start)
     seconds["mesh exact + traversal"] = round(eng["mesh"]["seconds"], 1)
+    build_thread.join()
+    if "error" in sweep_build:
+        raise sweep_build["error"]
+    seconds["sweep build (in the engine phase)"] = round(
+        sweep_build["seconds"], 1)
+    log(f"sweep kernel build + load: {sweep_build['seconds']:.1f} s "
+        f"({kernels.sweep_library_path().name})")
+    print_ptxas(kernels.SWEEP_SOURCES)
+    sweeps = timed("sweep", sweep_phase, device)
     # Derived from the two phases (kernel and fused step on the kernel
     # phase's random matrix, search_many on the engine's): where one
     # B=256 search_many goes.
@@ -2917,7 +3192,7 @@ def run_phases() -> int:
     gc.collect()
     seconds["mesh int8"] = round(ladder["mesh int8"]["seconds"], 1)
     seconds["mesh text"] = round(text["mesh"]["seconds"], 1)
-    serve, handoff = timed("serve", serve_phase, device)
+    serve, handoff = timed("serve", serve_phase, device, eng["serve"])
     log(f"serve on {card_line}: " + json.dumps(serve, default=float))
     gc.collect()
     cluster = timed("cluster", cluster_phase, device, handoff)
@@ -2936,22 +3211,23 @@ def run_phases() -> int:
     # kernel 1's launches on each path that runs it, counted from 0 just
     # before the path and read just after: bench_torch.py's timed windows
     # (in its own process), the exact engine, the serve phase, the mesh
+    # (kernel 2 also serves i8_sweep's shipped row); kernels 4 and 5 on
+    # the sweep phase's two entry points
     launches = {"bucket_scores": bench["launches"] + eng["launches"]
                 + serve["launches"] + eng["mesh"]["launches"],
                 **ladder["launches"]}
-    print(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": source,
-        "replaces": replaces,
-        "launches": launches[name],
-        "max_abs_err": kern[name]["max_abs_err"],
-        "ms": kern[name]["ms"],
-        "plain_ms": kern[name]["plain_ms"],
-        "bound_ms": kern[name]["bound_ms"],
-        "bound_by": kern[name]["bound_by"],
-        "library_ms": kern[name]["library_ms"],
-    } for name, source, replaces in KERNELS]}), flush=True)
+    launches["i8_bucket_scores"] += sweeps.pop("launches_i8_bucket_scores")
+    numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+    entries = [{"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                **{key: kern[name][key] for key in numbers}}
+               for name, source, replaces in KERNELS]
+    entries += [{"name": name, "route": "cuda",
+                 **{key: entry[key] for key in ("source", "replaces",
+                                                "launches") + numbers}}
+                for name, entry in sweeps.items()]
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,5 +1,6 @@
 // Hopper pieces shared by the three packed bucket-scores kernels
-// (bucket_scores.cu, i8_bucket_scores.cu, i4_bucket_scores.cu).
+// (bucket_scores.cu, i8_bucket_scores.cu, i4_bucket_scores.cu) and the
+// kernel sweeps built on them (sweep.cuh: kernels 4 and 5).
 //
 // All three have one shape: a persistent grid of one block per SM walks
 // 64-row buckets (bucket = blockIdx.x + i * gridDim.x); one producer
@@ -8,7 +9,8 @@
 // take alternate buckets and issue wgmma with M = 64 = one bucket against
 // the queries; the packed bucket max is taken in registers.  This header
 // holds the inline PTX (mbarrier, TMA, wgmma), the shared-memory plan,
-// the epilogue, and the host side (tensor maps, the shared-memory opt-in).
+// the epilogue (kernels 1-3's, and the sweeps' compile-time variants of
+// it), and the host side (tensor maps, the shared-memory opt-in).
 //
 // The epilogue reproduces the reference's bucket_reduce_packed bit for
 // bit: rows >= n_valid score NEG_SENTINEL, each score's low 6 mantissa
@@ -256,6 +258,102 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[NT * 64], uint64_t a,
     wgmma_m64n128k32_s8(d, a, b, accumulate);
 }
 
+// D[64 x 128] (+)= A[64 x 16] * B[128 x 16]^T, bf16 in, f32 sums.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 256] (+)= A[64 x 16] * B[256 x 16]^T, bf16 in, f32 sums.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// B / 128 query tiles in one product: n128 at B = 128, n256 at B = 256
+// (one instruction reads the row tile once for all queries).
+template <int NT>
+__device__ __forceinline__ void wgmma_rows_queries(float (&d)[NT * 64],
+                                                   uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  if constexpr (NT == 2)
+    wgmma_m64n256k16(d, a, b, accumulate);
+  else
+    wgmma_m64n128k16(d, a, b, accumulate);
+}
+
 // One LOP3: the score's bits under `keep`, then the row's `put` bits.
 __device__ __forceinline__ float pack(float s, uint32_t keep, uint32_t put) {
   return __uint_as_float((__float_as_uint(s) & keep) | put);
@@ -272,16 +370,19 @@ __device__ __forceinline__ float flush_denormal(float v) {
 __device__ __forceinline__ float as_score(float v) { return v; }
 __device__ __forceinline__ float as_score(int v) { return __int2float_rn(v); }
 
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ int vmax(int a, int b) { return max(a, b); }
+
 // One half-exchange of the reduce-scatter: lanes that differ in `bit`
 // swap halves of m[0, 2h) and keep the max of the half they own in
 // m[0, h).
-template <int H>
-__device__ __forceinline__ void exchange(float (&m)[32], bool hi, int bit) {
+template <int H, typename V>
+__device__ __forceinline__ void exchange(V (&m)[32], bool hi, int bit) {
 #pragma unroll
   for (int i = 0; i < H; ++i) {
-    const float send = hi ? m[i] : m[i + H];
-    const float keep = hi ? m[i + H] : m[i];
-    m[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, bit));
+    const V send = hi ? m[i] : m[i + H];
+    const V keep = hi ? m[i + H] : m[i];
+    m[i] = vmax(keep, __shfl_xor_sync(0xffffffffu, send, bit));
   }
 }
 
@@ -405,6 +506,216 @@ __device__ __forceinline__ void s8_products(int (&acc)[NT * 64],
   wgmma_wait<0>();
   fence_acc(acc);
   mbar_arrive(my_empty + 8 * prev);
+}
+
+// The products of one bucket from a bf16 ring with resident queries, for
+// the sweeps (sweep.cuh): kernel 1's loop, which bucket_scores.cu keeps
+// inline so that its generated code stays as it was.  Per 64-column
+// K-chunk, four m64nBk16 bf16 products with f32 sums, the previous
+// chunk's stage released once its products are done.
+template <int NT>
+__device__ __forceinline__ void bf16_products(float (&acc)[NT * 64],
+                                              uint32_t my_full,
+                                              uint32_t my_empty,
+                                              uint32_t my_ring,
+                                              uint32_t q_addr, uint32_t seq0,
+                                              int k_chunks, int depth) {
+  constexpr int B = 128 * NT;
+  uint32_t prev = 0;
+  fence_acc(acc);
+  for (int k = 0; k < k_chunks; ++k) {
+    const uint32_t seq = seq0 + k;
+    const uint32_t s = seq % depth;
+    mbar_wait(my_full + 8 * s, (seq / depth) & 1);
+    wgmma_fence();
+    const uint32_t a = my_ring + s * ROW_TILE_BYTES;
+    const uint32_t q = q_addr + k * B * SWIZZLE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < SWIZZLE_BYTES / 32; ++kk)
+      wgmma_rows_queries<NT>(acc, sw128_desc(a + kk * 32),
+                             sw128_desc(q + kk * 32), k | kk);
+    wgmma_commit();
+    if (k > 0) {
+      wgmma_wait<1>();
+      mbar_arrive(my_empty + 8 * prev);
+    }
+    prev = s;
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  mbar_arrive(my_empty + 8 * prev);
+}
+
+// ------------------------------------------------- the sweeps' epilogue
+//
+// Compile-time choices of the epilogue for the kernel sweeps (sweep.cuh;
+// the ports of benchmarks/onepass_sweep.py and benchmarks/i8_sweep.py).
+// Kernels 1-3 keep bucket_epilogue above, whose row mask is folded into
+// the pack (Mask::Fold); these variants run beside it:
+//
+// - Mask::Select: rows >= n_valid score NEG_SENTINEL by an explicit
+//   select before the pack (the TPU kernels' order of operations);
+// - Mask::Tail: that select only in a bucket that holds a row >= n_valid,
+//   one branch per bucket, uniform over the warpgroup;
+// - Mask::None: no mask (the sweep's probes).
+//
+// and the reduction:
+//
+// - Reduce::Packed: each score's low 6 mantissa bits take its row, a
+//   float max, the denormal flush on the winner (bucket_reduce_packed);
+// - Reduce::Max: a plain float max of the scores, no pack, no flush;
+// - Reduce::IntMax: an int max of the raw int32 sums, converted to f32
+//   after the reduction;
+// - Reduce::I32Pack: the int domain: (sum << 6) | row (INT32_MIN for a
+//   masked row), an int max, then the winner's sum >> 6 converted to f32,
+//   multiplied by the bucket's scale, re-packed with the winner's row and
+//   flushed.  Among equal negative sums the higher row wins (the float
+//   pack picks the lower one).
+enum class Mask { Fold, Select, Tail, None };
+enum class Reduce { Packed, Max, IntMax, I32Pack };
+
+// The value an accumulator entry `a` of in-bucket row r contributes to
+// the reduction; `scale` multiplies the f32 score when SCALED.
+template <Reduce RED, bool SCALED, typename T>
+__device__ __forceinline__ auto sweep_value(T a, uint32_t r, bool dead,
+                                            float scale) {
+  if constexpr (RED == Reduce::I32Pack) {
+    static_assert(sizeof(T) == 4 && T(-1) < T(0), "int32 sums");
+    const int p = static_cast<int>((static_cast<uint32_t>(a) << 6) | r);
+    return dead ? static_cast<int>(0x80000000u) : p;
+  } else if constexpr (RED == Reduce::IntMax) {
+    return a;
+  } else {
+    float v = as_score(a);
+    if constexpr (SCALED) v = __fmul_rn(v, scale);
+    v = dead ? NEG_SENTINEL : v;
+    if constexpr (RED == Reduce::Packed) v = pack(v, ~63u, r);
+    return v;
+  }
+}
+
+// What a bucket's winner becomes in the output.
+template <Reduce RED, typename V>
+__device__ __forceinline__ float sweep_final(V v, float bucket_scale) {
+  if constexpr (RED == Reduce::Packed) {
+    return flush_denormal(v);
+  } else if constexpr (RED == Reduce::Max) {
+    return v;
+  } else if constexpr (RED == Reduce::IntMax) {
+    return __int2float_rn(v);
+  } else {
+    const float s = __fmul_rn(__int2float_rn(v >> 6), bucket_scale);
+    return flush_denormal(__uint_as_float(
+        (__float_as_uint(s) & ~63u) | (static_cast<uint32_t>(v) & 63u)));
+  }
+}
+
+// reduce_tile's walk for the sweeps: query tile N of the accumulator to
+// the max of each column over this warp's 16 rows, into buf[0, 128).
+template <int N, Reduce RED, bool SCALED, typename V, typename T, int R>
+__device__ __forceinline__ void sweep_reduce_tile(
+    const T (&acc)[R], V* buf, uint32_t r0, uint32_t r1, bool dead0,
+    bool dead1, float sc0, float sc1, int lane) {
+  V m[32];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      m[2 * j + e] = vmax(
+          sweep_value<RED, SCALED>(acc[64 * N + 4 * j + e], r0, dead0, sc0),
+          sweep_value<RED, SCALED>(acc[64 * N + 4 * j + 2 + e], r1, dead1,
+                                   sc1));
+  exchange<16>(m, lane & 16, 16);
+  exchange<8>(m, lane & 8, 8);
+  exchange<4>(m, lane & 4, 4);
+  V* col = buf + 16 * (lane / 4) + 2 * (lane % 4);
+  col[0] = m[0];
+  col[1] = m[1];
+  col[8] = m[2];
+  col[9] = m[3];
+}
+
+// One bucket's reduction, merge and store with the mask applied
+// (MASKED) or not: bucket_epilogue's shape (registers, shuffles, a
+// 4-warp merge through `buf`), then each winner to out[bucket, col], or
+// to out[col, bucket] when TRANSPOSED ([B, buckets]: a bucket's B
+// winners land in B rows, n_buckets apart).
+template <int NT, bool MASKED, Reduce RED, bool SCALED, bool TRANSPOSED,
+          typename T>
+__device__ __forceinline__ void sweep_bucket(const T (&acc)[NT * 64],
+                                             void* buf_raw, float* out,
+                                             int bucket, int n_buckets,
+                                             int n_valid, int wg, int t,
+                                             float sc0, float sc1,
+                                             float bucket_scale) {
+  constexpr int B = 128 * NT;
+  using V = decltype(sweep_value<RED, SCALED>(acc[0], 0u, false, 0.0f));
+  V* buf = static_cast<V*>(buf_raw);
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const uint32_t r0 = warp * 16 + lane / 4;
+  const uint32_t r1 = r0 + 8;
+  const int row0 = bucket * BUCKET;
+  const bool dead0 = MASKED && row0 + static_cast<int>(r0) >= n_valid;
+  const bool dead1 = MASKED && row0 + static_cast<int>(r1) >= n_valid;
+  sweep_reduce_tile<0, RED, SCALED>(acc, buf + warp * B, r0, r1, dead0,
+                                    dead1, sc0, sc1, lane);
+  if constexpr (NT == 2)
+    sweep_reduce_tile<1, RED, SCALED>(acc, buf + warp * B + 128, r0, r1,
+                                      dead0, dead1, sc0, sc1, lane);
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+  float w[NT];
+#pragma unroll
+  for (int c = 0; c < NT; ++c) {
+    V v = buf[NT * t + c];
+#pragma unroll
+    for (int k = 1; k < 4; ++k) v = vmax(v, buf[k * B + NT * t + c]);
+    w[c] = sweep_final<RED>(v, bucket_scale);
+  }
+  if constexpr (TRANSPOSED) {
+#pragma unroll
+    for (int c = 0; c < NT; ++c)
+      out[static_cast<long long>(NT * t + c) * n_buckets + bucket] = w[c];
+  } else if constexpr (NT == 2) {
+    *reinterpret_cast<float2*>(out + static_cast<long long>(bucket) * B +
+                               2 * t) = make_float2(w[0], w[1]);
+  } else {
+    out[static_cast<long long>(bucket) * B + t] = w[0];
+  }
+}
+
+// The sweeps' epilogue of consumer warpgroup `wg` for one bucket, after
+// wgmma_wait<0>: `buf` is one of the consumer's two 4 x B buffers (as
+// for bucket_epilogue), sc0 / sc1 the row scales of this thread's two
+// rows (SCALED), bucket_scale the bucket's (Reduce::I32Pack).
+template <int NT, Mask MASK, Reduce RED, bool SCALED, bool TRANSPOSED,
+          typename T>
+__device__ __forceinline__ void sweep_epilogue(const T (&acc)[NT * 64],
+                                               void* buf, float* out,
+                                               int bucket, int n_buckets,
+                                               int n_valid, int wg, int t,
+                                               float sc0, float sc1,
+                                               float bucket_scale) {
+  static_assert(MASK != Mask::Fold, "the folded mask is bucket_epilogue's");
+  static_assert(RED != Reduce::IntMax || MASK == Mask::None,
+                "an int max of raw sums takes no mask");
+  if constexpr (MASK == Mask::None) {
+    sweep_bucket<NT, false, RED, SCALED, TRANSPOSED>(
+        acc, buf, out, bucket, n_buckets, n_valid, wg, t, sc0, sc1,
+        bucket_scale);
+  } else if constexpr (MASK == Mask::Select) {
+    sweep_bucket<NT, true, RED, SCALED, TRANSPOSED>(
+        acc, buf, out, bucket, n_buckets, n_valid, wg, t, sc0, sc1,
+        bucket_scale);
+  } else if ((bucket + 1) * BUCKET > n_valid) {
+    sweep_bucket<NT, true, RED, SCALED, TRANSPOSED>(
+        acc, buf, out, bucket, n_buckets, n_valid, wg, t, sc0, sc1,
+        bucket_scale);
+  } else {
+    sweep_bucket<NT, false, RED, SCALED, TRANSPOSED>(
+        acc, buf, out, bucket, n_buckets, n_valid, wg, t, sc0, sc1,
+        bucket_scale);
+  }
 }
 
 // ------------------------------------------------------------------ host

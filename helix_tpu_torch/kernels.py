@@ -19,6 +19,14 @@ header: ``csrc/hopper.cuh``, which all three include, writes their TMA,
 ``mbarrier`` and ``wgmma`` instructions as inline PTX and includes only
 the toolkit's ``cuda.h`` (for the tensor-map type; libcuda's encoder is
 fetched with ``cudaGetDriverEntryPoint``, not linked).
+
+The kernel sweeps' sources (``SWEEP_SOURCES``: kernels 4 and 5, the
+ports of ``benchmarks/onepass_sweep.py`` and ``benchmarks/i8_sweep.py``)
+build the same way into a second library, ``libhxsweep-<hash>.so``, at
+the first use of a sweep kernel (:func:`load_sweep`).  Its hash covers
+the sweep sources and every header they include; the serving library's
+name, sources and build are the three kernels' alone, so an engine or a
+server never compiles the sweeps' instantiations.
 """
 
 from __future__ import annotations
@@ -38,6 +46,13 @@ SOURCES = (
     _HERE / "csrc" / "i4_bucket_scores.cu",
 )
 HEADERS = (_HERE / "csrc" / "hopper.cuh",)
+SWEEP_SOURCES = (
+    _HERE / "csrc" / "sweep_bucket_scores.cu",
+    _HERE / "csrc" / "i8_sweep_bf16.cu",
+    _HERE / "csrc" / "i8_sweep_packed.cu",
+    _HERE / "csrc" / "i8_sweep_probe.cu",
+)
+SWEEP_HEADERS = (_HERE / "csrc" / "sweep.cuh",)
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,6 +61,8 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+_SWEEP_LOCK = threading.Lock()
+_SWEEP_LIB: ctypes.CDLL | None = None
 # source name -> the compiler's output of the last build in this process
 BUILD_LOG: dict[str, str] = {}
 
@@ -65,29 +82,44 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (PATH or CUDA_HOME)")
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def _library_path(stem: str, sources: tuple, headers: tuple) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES + HEADERS:
+    for src in sources + headers:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libhxcuda-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless a library for them already exists;
-    returns its path."""
-    out = library_path()
+def library_path() -> Path:
+    """Where the serving library for the current sources lives (built or
+    not)."""
+    return _library_path("libhxcuda", SOURCES, HEADERS)
+
+
+def sweep_library_path() -> Path:
+    """Where the sweep library for the current sources lives (built or
+    not): its sources, their own header and the shared one."""
+    return _library_path("libhxsweep", SWEEP_SOURCES,
+                         HEADERS + SWEEP_HEADERS)
+
+
+def build(out: Path | None = None, sources: tuple | None = None) -> Path:
+    """Compile ``sources`` (default: the serving library's) into ``out``
+    (default: :func:`library_path`) unless it already exists, one
+    ``nvcc`` per source, all started together, then a link; returns the
+    path."""
+    out = library_path() if out is None else out
+    sources = SOURCES if sources is None else sources
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"tmp{os.getpid()}"
-    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in SOURCES]
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in sources]
     tmp = out.with_suffix(f".{tag}.so")
     compiles = [
         [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        for src, obj in zip(SOURCES, objs)
+        for src, obj in zip(sources, objs)
     ]
     try:
         procs = [
@@ -96,7 +128,7 @@ def build() -> Path:
             for cmd in compiles
         ]
         outputs = [proc.communicate()[0] for proc in procs]
-        for src, cmd, proc, text in zip(SOURCES, compiles, procs, outputs):
+        for src, cmd, proc, text in zip(sources, compiles, procs, outputs):
             BUILD_LOG[src.name] = text
             if proc.returncode != 0:
                 raise KernelBuildError(
@@ -149,4 +181,40 @@ def load() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p,
         ]
         _LIB = lib
+        return lib
+
+
+# The sweep kernels' C entries (csrc/sweep.cuh: HX_SWEEP_ENTRY): kernel 4
+# in sweep_bucket_scores.cu, kernel 5 in i8_sweep_*.cu.
+SWEEP_ENTRIES = (
+    "hx_sweep_shipped", "hx_sweep_onepass", "hx_sweep_lastmask",
+    "hx_i8_sweep_bf16dot", "hx_i8_sweep_bf16dot_tail", "hx_i8_sweep_dot_bf16",
+    "hx_i8_sweep_i32pack", "hx_i8_sweep_scale2d", "hx_i8_sweep_gscale",
+    "hx_i8_sweep_ep_pack", "hx_i8_sweep_full_t",
+    "hx_i8_sweep_dot_i8", "hx_i8_sweep_ep_astype", "hx_i8_sweep_ep_scale",
+    "hx_i8_sweep_ep_mask", "hx_i8_sweep_amk",
+)
+
+
+def load_sweep() -> ctypes.CDLL:
+    """Build (if needed) and load the sweep library, once per process."""
+    global _SWEEP_LIB
+    with _SWEEP_LOCK:
+        if _SWEEP_LIB is not None:
+            return _SWEEP_LIB
+        lib = ctypes.CDLL(str(build(sweep_library_path(), SWEEP_SOURCES)))
+        for name in SWEEP_ENTRIES:
+            entry = getattr(lib, name)
+            entry.restype = ctypes.c_int
+            entry.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+        lib.hx_sweep_plan.restype = ctypes.c_int
+        lib.hx_sweep_plan.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int),
+        ]
+        _SWEEP_LIB = lib
         return lib

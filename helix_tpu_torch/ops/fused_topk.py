@@ -223,6 +223,7 @@ def fused_candidates(
     *,
     k: int,
     rerank: int = 8,
+    winners=bucket_scores,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused step's core, shared by :func:`fused_topk` and the mesh's
     per-shard search (``parallel/sharded.py:_local_fused``): packed
@@ -231,7 +232,9 @@ def fused_candidates(
     exact f32 re-rank.  Returns ``(scores, ids, filled)``, each
     ``[B, min(k, k_cand)]`` and descending by score; a slot whose bucket
     held no valid row scores -inf, keeps the id its packed winner names
-    and is not ``filled``."""
+    and is not ``filled``.  ``winners(xs16, qs16, n_valid)`` stands in
+    for :func:`bucket_scores` (the kernel sweep's variants,
+    ``benchmarks/onepass_sweep.py``)."""
     require_fp32_matmul()
     b_in = qs.shape[0]
     total_buckets = xs16.shape[0] // BUCKET
@@ -244,7 +247,7 @@ def fused_candidates(
         if b_pad != b:
             chunk = torch.nn.functional.pad(chunk, (0, 0, 0, b_pad - b))
         qs16 = chunk.to(torch.bfloat16)
-        vals = bucket_scores(xs16, qs16, n_valid).T       # [b_pad, buckets]
+        vals = winners(xs16, qs16, n_valid).T            # [b_pad, buckets]
         best_s, pos = _top_k(vals, k_cand)
         arg = best_s.view(torch.int32) & (BUCKET - 1)
         best_i = pos * BUCKET + arg
@@ -274,13 +277,14 @@ def fused_topk(
     *,
     k: int,
     rerank: int = 8,
+    winners=bucket_scores,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ``topk_resident``, cosine metric: fused packed
-    candidates + exact f32 re-rank (:func:`fused_candidates`).  Returns
-    ``(dists, ids)`` ascending by distance; overflow slots (fewer than k
-    valid rows) carry id -1."""
+    candidates + exact f32 re-rank (:func:`fused_candidates`, which
+    ``winners`` is passed to).  Returns ``(dists, ids)`` ascending by
+    distance; overflow slots (fewer than k valid rows) carry id -1."""
     top_s, top_i, filled = fused_candidates(
-        xs16, xs32, qs, n_valid, k=k, rerank=rerank
+        xs16, xs32, qs, n_valid, k=k, rerank=rerank, winners=winners
     )
     top_i = torch.where(filled, top_i, -1)
     k_top = top_s.shape[1]

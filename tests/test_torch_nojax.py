@@ -13,7 +13,9 @@ a sharded traversal and BM25 search, ``graft.dryrun_multichip(4)``), and
 the serving
 slice: an engine on a data dir writes and closes (checkpoint + WAL), a
 ``NativeGateway`` recovers it, installs a bundle over HTTP and answers a
-stored vector route on the fast path.  At the end no ``helix_tpu``
+stored vector route on the fast path, then the kernel sweeps' entry
+points (``benchmarks.onepass_sweep``, ``benchmarks.i8_sweep``) on the
+CPU at 12,000 rows.  At the end no ``helix_tpu``
 module (the package or any of its submodules) may be in
 ``sys.modules``.
 
@@ -207,6 +209,13 @@ try:
         gw.stop()
 finally:
     shutil.rmtree(data_dir)
+
+from helix_tpu_torch.benchmarks import i8_sweep, onepass_sweep
+
+assert onepass_sweep.main(["--device", "cpu", "--n", "12000", "--rounds",
+                           "2", "--tiles", "2"]) == 0
+assert i8_sweep.main(["--device", "cpu", "--n", "12000", "--rounds", "2",
+                      "--variants", "shipped,i32pack,bf16dot,xT"]) == 0
 assert sys.modules["jax"] is None
 assert not [m for m in sys.modules if m.startswith("jax.")]
 loaded = [m for m in sys.modules
