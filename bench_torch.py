@@ -75,11 +75,15 @@ then the committed ``BASELINE_MEASURED.json``, marked
 ``cached_measurement`` with that record's ``measured_at`` and a note that
 it was taken on another host; then the assumed 10,000 QPS.
 
+``--ladder`` runs the residency ladder instead, as ``bench.py --ladder``
+runs ``benchmarks/ladder.py``: the rest of the arguments (``--n``,
+``--d``, ``--batch``, ``--rounds``, ``--out``) and ``--device`` go to
+``helix_tpu_torch.benchmarks.ladder.main`` (every rung on one corpus, one
+JSON line; that module's docstring lists how it differs).
+
 Left out of ``bench.py``: ``_reference_baseline_attempt`` (it pulls the
-reference's container over the network), ``--ladder`` (it runs
-``benchmarks/ladder.py``; the card's ladder numbers come from
-``chip_smoke.py``'s ladder phase, so ``--ladder`` exits nonzero saying
-so), the silent CPU fallback, and the clamp to the roofline.
+reference's container over the network), the silent CPU fallback, and
+the clamp to the roofline.
 
 Every graph's answers are held to an eager search over the same buffers
 after its timed replays (ids equal), and a graph that does not replay
@@ -1131,9 +1135,11 @@ def measure_baseline(data: np.ndarray, queries: np.ndarray,
     time the search there.  None when no index is cached and builds are
     not allowed."""
     n, d = data.shape
-    lib = hnsw_library(cache_dir)
     tag = f"_{cache_tag}" if cache_tag else ""
     cache = cache_dir / f"hnsw_m16_efc128_{n}x{d}{tag}.bin"
+    if not allow_build and not cache.exists():
+        return None
+    lib = hnsw_library(cache_dir)
     build_s = None
     index = CpuHnsw.load(lib, cache) if cache.exists() else None
     if index is not None and len(index) != n:
@@ -1200,11 +1206,7 @@ def cpu_hnsw_baseline(data: np.ndarray, queries: np.ndarray,
             measured = None
         if measured is not None:
             measured["source"] = "measured"
-            measured["measured_at"] = time.strftime("%Y-%m-%dT%H:%M:%SZ",
-                                                    time.gmtime())
-            records = _read_records(own)
-            records[key] = measured
-            own.write_text(json.dumps(records, indent=1))
+            record_baseline(own, key, measured)
             return measured
     for path, note in (
         (own, "measured earlier by bench_torch.py on this checkout's host"),
@@ -1215,6 +1217,18 @@ def cpu_hnsw_baseline(data: np.ndarray, queries: np.ndarray,
         if record is not None:
             return dict(record, source="cached_measurement", note=note)
     return {"qps": ASSUMED_CPU_HNSW_QPS, "source": "assumed"}
+
+
+def record_baseline(path: Path, key: str, measured: dict) -> None:
+    """Stamp ``measured`` with the time and store it under ``key`` in the
+    record at ``path`` (the port's own, never ``BASELINE_MEASURED.json``).
+    """
+    measured["measured_at"] = time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                            time.gmtime())
+    records = _read_records(path)
+    records[key] = measured
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(records, indent=1))
 
 
 def _read_records(path: Path) -> dict:
@@ -1359,13 +1373,16 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda)")
     parser.add_argument("--ladder", action="store_true",
-                        help="not ported: see chip_smoke.py's ladder phase")
-    args = parser.parse_args(argv)
+                        help="run the residency ladder instead "
+                             "(helix_tpu_torch.benchmarks.ladder; it takes "
+                             "--n, --d, --batch, --rounds and --out)")
+    args, rest = parser.parse_known_args(argv)
     if args.ladder:
-        print("bench_torch: --ladder runs benchmarks/ladder.py in bench.py "
-              "and is not ported; the card's ladder numbers come from "
-              "chip_smoke.py's ladder phase (ladder_phase)", file=sys.stderr)
-        return 2
+        from helix_tpu_torch.benchmarks.ladder import main as ladder_main
+
+        return ladder_main([*rest, "--device", args.device])
+    if rest:
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("bench_torch: torch sees no CUDA device; pass --device cpu "

@@ -42,7 +42,16 @@ Phases, each failing the run on a bad check:
    finite numbers; the line is printed, and the launches its wrapper
    counted in the eager windows join kernel 1's count.  Its graph-read
    keys are the card's times for the graph ops cell.
-5. Engine (exact): ``Engine(device="cuda", data_dir=...)`` ingests 1M x
+5. Ladder bench (``ladder_bench_phase``): ``python bench_torch.py
+   --ladder`` in a child process at the reference ladder's defaults
+   (1M x 128 cosine, B=256, k=10, 16 rounds; never an HNSW build): its
+   line must hold the five rungs in order (exact, int8_dev, int8, int4,
+   host_ivf), each serving at recall@10 >= 0.99 / 0.98 / 0.98 / 0.95 /
+   0.95, each timed rung at or below its bound (the coarse phase's for
+   int8 and int4), every number finite, and kernels 1, 2 and 3 launched
+   and captured; the line is printed and its launches join the kernels'
+   counts.
+6. Engine (exact): ``Engine(device="cuda", data_dir=...)`` ingests 1M x
    128 clustered vectors (``bench.py``'s generator, seed 42) through
    ``ForEach AddN`` write batches with the WAL on (the one 1M ingest the
    serve phase shares), then answers single-query reads through
@@ -58,7 +67,7 @@ Phases, each failing the run on a bad check:
    (``VectorSearchNodes`` -> ``Out`` -> ``Dedup`` -> ``Count``) with
    ``HELIX_TRAVERSAL_BACKEND`` forced to ``device``, ``native``, then
    ``auto``: equal JSON on all three.
-6. Sweeps (``sweep_phase``): kernels 4 and 5, the ports of
+7. Sweeps (``sweep_phase``): kernels 4 and 5, the ports of
    ``benchmarks/onepass_sweep.py`` and ``benchmarks/i8_sweep.py``, on one
    1M x 128 corpus (``_corpus``, seed 42): both entry points' sweeps
    (``helix_tpu_torch.benchmarks``), every variant (kernel 4's three at
@@ -74,21 +83,30 @@ Phases, each failing the run on a bad check:
    against their int8 twins; each timed against its plain version and
    the library call (``torch.matmul`` bf16 or ``torch._int_mm``), kernel
    4 also at each ring depth beside kernel 1.
-7. Graph ops: ``bench.py``'s traversal shape (1M nodes, degree 16, 4
+8. Graph ops: ``bench.py``'s traversal shape (1M nodes, degree 16, 4
    labels): ``khop_mask`` / ``khop_count`` / ``hybrid_expand`` on the
    card against ``helix_tpu_torch.native.bfs_khop``, masks and counts equal
    (the bench phase times the same reads).
-8. Ladder: ``Engine(device="cuda", hbm_budget_bytes=96 MiB)`` ingests 1.5M
-   rows of the same generator.  At 500,000 rows the int8 rung serves
-   (kernel 2), with the host re-rank and then with
-   ``HELIX_QUANT_RERANK=device``; at 1,000,000 rows the int4 rung
-   (kernel 3); at 1,500,000 rows the host-IVF rung (no kernel), with the
-   probe router on auto, then ``HELIX_IVF_BACKEND=device``, then
-   ``host``.  Each step checks its rung, recall@10 (>= 0.98 int8, >= 0.95
-   int4 and IVF), ``$distance``, a dropped top hit, and which kernels
-   and device ops ran; the IVF step also holds its probe cells to a
-   float64 computation.
-9. l2 (``l2_phase``): SIFT1M's deployment, 1M x 128 Euclidean: rows of
+9. Ladder: ``Engine(device="cuda", hbm_budget_bytes=48 MiB)`` ingests
+   750,000 rows of the same generator (cut from 96 MiB and 1.5M rows: the
+   ladder bench measures every rung at 1M).  At 250,000 rows the int8
+   rung serves (kernel 2), with the host re-rank and then with
+   ``HELIX_QUANT_RERANK=device``; at 500,000 rows the int4 rung (kernel
+   3); at 750,000 rows the host-IVF rung (no kernel), with the probe
+   router on auto, then ``HELIX_IVF_BACKEND=device``, then ``host``.
+   Each step checks its rung, recall@10 (>= 0.98 int8, >= 0.95 int4 and
+   IVF), ``$distance``, a dropped top hit, and which kernels and device
+   ops ran; the IVF step also holds its probe cells to a float64
+   computation.
+10. Demos (``demos_phase``): the ports of ``benchmarks/quant_demo.py``
+   (``--bits 8``: per-row int8 and ``torch._int_mm``, no kernel; then
+   ``--bits 4``: kernel 3 with ``perm``, which must launch) and
+   ``benchmarks/beyond_hbm_demo.py`` (host IVF past a budget of 2 GB
+   scaled by n / 10M) through their ``main``s at ``DEMO_N`` rows, cut
+   from their 10M default; their lines printed, recall@10 >= 0.95 for
+   both quantized runs and ``beyond_hbm_demo``'s own gate (some nprobe
+   at 0.9).
+11. l2 (``l2_phase``): SIFT1M's deployment, 1M x 128 Euclidean: rows of
    the same generator mapped to SIFT's byte form (integers in [0, 255],
    median norm ~515), ingested once into the engine of
    ``NativeGateway(metric="l2")``.  The partition's ``hbm_budget_bytes``
@@ -104,10 +122,10 @@ Phases, each failing the run on a bad check:
    ``topk_resident`` whole.  Then the gateway serves the exact index:
    128 ``vfast`` requests on the fast path, equal to the in-process
    answers.
-10. Text: a 116,969-doc BM25 index through the engine
+12. Text: a 116,969-doc BM25 index through the engine
    (``TextSearchNodes``): the device path's ids equal the host path's,
    scores within rtol 1e-5, both timed.
-11. Serve: the exact cell again, from disk and over HTTP
+13. Serve: the exact cell again, from disk and over HTTP
    (``serve_phase``): the engine phase's checkpointed data dir (1M rows
    ingested with the WAL on); the native gateway recovers it in process
    (recovery and the first search after it timed), installs a bundle over
@@ -115,7 +133,7 @@ Phases, each failing the run on a bad check:
    with 256 in flight (QPS) on the vector fast path into kernel 1, held
    to a numpy oracle, ``fast_requests`` and kernel 1's launch count,
    then takes a durable HTTP write that lives only in the WAL.
-12. Cluster (``cluster_phase``): ``python -m helix_tpu_torch.cli`` makes a
+14. Cluster (``cluster_phase``): ``python -m helix_tpu_torch.cli`` makes a
     project of a primary and two replicas; ``start primary --disk``
     recovers the serve phase's data dir (the write from the WAL) and
     answers as the in-process gateway did, the two replicas seed from
@@ -185,8 +203,10 @@ KERNEL_REPS = 10  # back-to-back calls per timed sample
 N_PROBE = 128  # p90 of the per-request latency has 12 samples past it
 N_BATCHES = 16
 # The ladder phase's budget and rows (steps: LADDER_STEPS).
-LADDER_BUDGET = 96 << 20
-LADDER_ROWS = 1_500_000  # cut from 2,000,000 to keep the run within 900 s
+# Cut from 96 MiB and 1,500,000 rows (itself cut from 2,000,000) to keep
+# the run within 900 s; the ladder bench measures every rung at 1M.
+LADDER_BUDGET = 48 << 20
+LADDER_ROWS = 750_000
 DEVICE_RERANK_TOL = 2e-3  # f16 rows: |x| * 2^-11 per component
 # The graph ops phase: bench.py's traversal shape (BASELINE configs[2]).
 GRAPH_NODES = 1_000_000
@@ -203,6 +223,17 @@ EDGE_CHUNK = 25_000
 # The largest corpus of the test generator whose most common word stays
 # within DevicePostings' cap of 65,536 postings.
 N_TEXT_DOCS = 116_969
+# Each cut of depth from the configuration a phase drives, printed on the
+# ``reduced:`` line.
+REDUCED = {
+    "ladder phase": "48 MiB budget and 750,000 rows, from 96 MiB and "
+                    "1,500,000 (itself from 2,000,000): the ladder bench "
+                    "measures every rung at 1,000,000",
+    "demos": "500,000 rows, from 10,000,000 (run time; quant_demo --bits "
+             "4's fixed pool of 320 falls below recall 0.95 at 1M)",
+    "engine edges": "400,000 labeled edges, from 1,600,000 and then "
+                    "800,000",
+}
 
 
 def log(msg: str) -> None:
@@ -842,6 +873,131 @@ def bench_phase(device: torch.device, **env: str) -> dict:
     return {"launches": res["kernel_launches"], "line": res}
 
 
+# ------------------------------------------------------- ladder bench
+
+# The rungs of ``bench_torch.py --ladder`` in order, each with its recall
+# floor and the kernel it launches (host IVF: none).
+LADDER_BENCH_RUNGS = (("exact", 0.99, "bucket_scores"),
+                      ("int8_dev", 0.98, "i8_bucket_scores"),
+                      ("int8", 0.98, "i8_bucket_scores"),
+                      ("int4", 0.95, "i4_bucket_scores"),
+                      ("host_ivf", 0.95, None))
+# Each rung's reading and the bound it is held to (the coarse phase's for
+# the host re-ranked rungs).
+LADDER_BENCH_BOUNDS = {"exact": ("qps", "roofline_qps"),
+                       "int8_dev": ("qps", "roofline_qps"),
+                       "int8": ("coarse_qps", "coarse_roofline_qps"),
+                       "int4": ("coarse_qps", "coarse_roofline_qps")}
+
+
+def ladder_bench_phase(device: torch.device, *args: str) -> dict:
+    """``python bench_torch.py --ladder`` as a child process, at the
+    reference ladder's defaults on the card (1M x 128 cosine, B=256,
+    k=10, 16 rounds; ``args`` adds overrides, a CPU rehearsal passes a
+    small ``--n``).  It never builds an HNSW: its baseline is a record or
+    none.  Checks the five rungs in order, each serving at its recall
+    floor, at or below its bound, every number finite; returns the line
+    with each kernel's launches in the child."""
+    script = Path(__file__).resolve().parent / "bench_torch.py"
+    argv = [sys.executable, str(script), "--ladder", *args]
+    if device.type != "cuda":
+        argv += ["--device", "cpu"]
+    else:
+        torch.cuda.empty_cache()  # the child shares the card
+    t = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S, cwd=script.parent)
+    seconds = time.perf_counter() - t
+    check(proc.returncode == 0, f"bench_torch.py --ladder exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    res = json.loads(line)
+    log(f"bench_torch.py --ladder on {card_name(device)} ({seconds:.1f} s): "
+        f"{line}")
+    rungs = res["rungs"]
+    tiers = [r["tier"] for r in rungs]
+    check(tiers == [tier for tier, _, _ in LADDER_BENCH_RUNGS],
+          f"ladder bench: rungs {tiers}")
+    check(all(np.isfinite(v) for v in numbers(res)),
+          "ladder bench: a number in the line is not finite")
+    launches = res["kernel_launches"]
+    for row, (tier, floor, kernel) in zip(rungs, LADDER_BENCH_RUNGS):
+        check(row["serving"] and row["recall_at_10"] >= floor,
+              f"ladder bench {tier}: recall@10 {row['recall_at_10']} < "
+              f"{floor} (serving {row['serving']})")
+        if device.type == "cuda" and tier in LADDER_BENCH_BOUNDS:
+            got, bound_key = LADDER_BENCH_BOUNDS[tier]
+            check(bound_key in row and row[got] <= row[bound_key],
+                  f"ladder bench {tier}: {row[got]} QPS against the bound "
+                  f"{row.get(bound_key)}")
+        if device.type == "cuda" and kernel is not None:
+            check(launches[kernel] > 0
+                  and res["kernel_captured"][kernel] > 0,
+                  f"ladder bench {tier}: {kernel} launched "
+                  f"{launches[kernel]}, captured "
+                  f"{res['kernel_captured'][kernel]}")
+    return {"launches": launches, "line": res, "seconds": seconds}
+
+
+# -------------------------------------------------------------- demos
+
+# The demos' corpus, cut from their default of 10,000,000 rows (the
+# budget that keeps beyond_hbm_demo past the exact tier scales with it:
+# 2 GB at 10M).  At 1,000,000 rows quant_demo --bits 4's fixed pool of
+# 320 candidates holds recall@10 0.923 on this corpus, at 500,000 0.9742.
+DEMO_N = 500_000
+DEMO_RECALL = 0.95
+
+
+def demos_phase(device: torch.device, n: int = DEMO_N) -> dict:
+    """``quant_demo`` (``--bits 8``, then ``--bits 4``, which must launch
+    kernel 3) and ``beyond_hbm_demo`` through their ``main``s at ``n``
+    rows, each line printed: recall@10 >= 0.95 for both quantized runs,
+    ``beyond_hbm_demo``'s own gate (some nprobe at 0.9).  Returns the
+    lines and kernel 3's launches in the int4 run."""
+    import contextlib
+    import io
+
+    from helix_tpu_torch.benchmarks import beyond_hbm_demo, quant_demo
+
+    dev = ["--device", "cuda" if device.type == "cuda" else "cpu"]
+    out: dict = {"launches": {}}
+
+    def run(name, main, argv) -> list:
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main([*argv, *dev])
+        lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+        out[f"{name} seconds"] = round(time.perf_counter() - t, 1)
+        for line in lines:
+            log(f"{name} on {card_name(device)}: {json.dumps(line)}")
+        check(rc == 0 and lines, f"{name} exited {rc}")
+        return lines
+
+    for bits in (8, 4):
+        before = launch_counts()
+        [res] = run(f"quant_demo --bits {bits}", quant_demo.main,
+                    ["--n", str(n), "--bits", str(bits)])
+        check(res["recall_at_10"] >= DEMO_RECALL,
+              f"quant_demo --bits {bits}: recall@10 {res['recall_at_10']}")
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
+        if bits == 4:
+            check_only_launched(device, counts, "i4_bucket_scores",
+                                "quant_demo --bits 4")
+            check(device.type != "cuda" or res["fused"],
+                  "quant_demo --bits 4 did not take the fused route")
+            out["launches"]["i4_bucket_scores"] = counts["i4_bucket_scores"]
+        else:
+            check(not any(counts.values()),
+                  f"quant_demo --bits 8 launched kernels: {counts}")
+        out[f"int{bits}"] = res
+    budget_gb = 2.0 * n / 10_000_000
+    out["ivf"] = run("beyond_hbm_demo", beyond_hbm_demo.main,
+                     ["--n", str(n), "--hbm-budget-gb", str(budget_gb)])
+    return out
+
+
 # ---------------------------------------------------------------- engine
 
 
@@ -1208,9 +1364,9 @@ def engine_steps(device: torch.device, n_rows: int, data: np.ndarray,
 
 
 # The ladder's steps: (rows reached, rung, knob, its values).  Under the
-# 96 MiB budget at dim_pad 128: 500,000 rows fit int8 codes (66 MB) but
-# not the exact copies; 1,000,000 rows fit packed int4 (68 MB) but not
-# int8; 1,500,000 rows fit no device rung (int4 102 MB): host IVF.
+# 48 MiB budget at dim_pad 128: 250,000 rows fit int8 codes (33 MB) but
+# not the exact copies; 500,000 rows fit packed int4 (34 MB) but not
+# int8; 750,000 rows fit no device rung (int4 51 MB): host IVF.
 LADDER_STEPS = (
     (LADDER_ROWS // 3, "int8", "HELIX_QUANT_RERANK", ("auto", "device")),
     (2 * LADDER_ROWS // 3, "int4", None, ("auto",)),
@@ -3146,6 +3302,7 @@ def run_phases() -> int:
     kern = {"bucket_scores": timed("kernel", kernel_phase, device)}
     kern.update(timed("quant kernels", quant_kernel_phase, device))
     bench = timed("bench", bench_phase, device)
+    ladder_bench = timed("ladder bench", ladder_bench_phase, device)
     # The sweep library builds in the background during the engine
     # phase's ingest (host work that nothing here times against the card).
     sweep_build: dict = {}
@@ -3183,6 +3340,8 @@ def run_phases() -> int:
     graph_ops = timed("graph ops", graph_ops_phase, device, eng["first_rows"])
     ladder = timed("ladder", ladder_phase, device)
     gc.collect()
+    demos = timed("demos", demos_phase, device)
+    gc.collect()
     l2 = timed("l2", l2_phase, device)
     log(f"l2 on {card_line}: " + json.dumps(l2, default=float))
     gc.collect()
@@ -3197,6 +3356,7 @@ def run_phases() -> int:
     gc.collect()
     cluster = timed("cluster", cluster_phase, device, handoff)
     log(f"cluster on {card_line}: " + json.dumps(cluster, default=float))
+    log(f"reduced: {json.dumps(REDUCED)}")
     log(f"phase seconds: {json.dumps(seconds)}, run so far "
         f"{time.perf_counter() - start:.1f} s")
     log("device paths: " + json.dumps({
@@ -3211,12 +3371,16 @@ def run_phases() -> int:
     # kernel 1's launches on each path that runs it, counted from 0 just
     # before the path and read just after: bench_torch.py's timed windows
     # (in its own process), the exact engine, the serve phase, the mesh
-    # (kernel 2 also serves i8_sweep's shipped row); kernels 4 and 5 on
-    # the sweep phase's two entry points
+    # (kernel 2 also serves i8_sweep's shipped row); kernels 1-3 in
+    # bench_torch.py --ladder (its own process), kernel 3 in quant_demo
+    # --bits 4; kernels 4 and 5 on the sweep phase's two entry points
     launches = {"bucket_scores": bench["launches"] + eng["launches"]
                 + serve["launches"] + eng["mesh"]["launches"],
                 **ladder["launches"]}
     launches["i8_bucket_scores"] += sweeps.pop("launches_i8_bucket_scores")
+    for name, count in ladder_bench["launches"].items():
+        launches[name] += count
+    launches["i4_bucket_scores"] += demos["launches"]["i4_bucket_scores"]
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
     entries = [{"name": name, "route": "cuda", "source": source,

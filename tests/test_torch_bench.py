@@ -248,12 +248,42 @@ def test_without_cuda_exits_naming_cuda():
     assert proc.stdout.strip() == ""
 
 
-def test_ladder_is_left_to_chip_smoke():
-    proc = run_script(["bench_torch.py", "--ladder", "--device", "cpu"],
-                      SMALL, ok=False)
+LADDER_TIERS = ["exact", "int8_dev", "int8", "int4", "host_ivf"]
+
+
+def test_ladder_on_the_cpu_prints_five_rungs():
+    """``--ladder`` runs the port's ladder (``bench.py --ladder``'s), its
+    own timer included, and passes on the ladder's arguments."""
+    proc = run_script(["bench_torch.py", "--ladder", "--device", "cpu",
+                       "--n", "8192", "--batch", "64", "--rounds", "2"],
+                      {"OMP_NUM_THREADS": "2"}, ok=False)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert out["metric"] == ("residency ladder (N=8192, d=128, k=10, "
+                             "batch=64)")
+    assert [r["tier"] for r in out["rungs"]] == LADDER_TIERS
+    assert out["backend"] == "cpu"
+    for row in out["rungs"]:
+        assert row["serving"] and row["recall_at_10"] >= 0.95, row
+        assert np.isfinite(row["qps"]) and row["qps"] > 0, row
+
+
+def test_ladder_without_cuda_exits_naming_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = run_script(["bench_torch.py", "--ladder", "--n", "4096"], {},
+                      ok=False)
     assert proc.returncode != 0
-    assert "chip_smoke.py" in proc.stderr and "ladder" in proc.stderr
+    assert "CUDA" in proc.stderr
     assert proc.stdout.strip() == ""
+
+
+def test_ladder_arguments_need_ladder():
+    with pytest.raises(SystemExit) as exc:
+        BT.main(["--device", "cpu", "--n", "4096"])
+    assert exc.value.code == 2
 
 
 def test_reading_past_the_bound_fails():

@@ -15,7 +15,10 @@ slice: an engine on a data dir writes and closes (checkpoint + WAL), a
 ``NativeGateway`` recovers it, installs a bundle over HTTP and answers a
 stored vector route on the fast path, then the kernel sweeps' entry
 points (``benchmarks.onepass_sweep``, ``benchmarks.i8_sweep``) on the
-CPU at 12,000 rows.  At the end no ``helix_tpu``
+CPU at 12,000 rows, and the ladder's (``benchmarks.ladder``,
+``quant_demo``, ``beyond_hbm_demo`` at 8,192 rows,
+``build_ladder_baseline`` at 2,000 into a temporary cache).  At the end
+no ``helix_tpu``
 module (the package or any of its submodules) may be in
 ``sys.modules``.
 
@@ -216,6 +219,24 @@ assert onepass_sweep.main(["--device", "cpu", "--n", "12000", "--rounds",
                            "2", "--tiles", "2"]) == 0
 assert i8_sweep.main(["--device", "cpu", "--n", "12000", "--rounds", "2",
                       "--variants", "shipped,i32pack,bf16dot,xT"]) == 0
+
+from helix_tpu_torch.benchmarks import (beyond_hbm_demo,
+                                        build_ladder_baseline, ladder,
+                                        quant_demo)
+
+assert ladder.main(["--device", "cpu", "--n", "8192", "--batch", "64",
+                    "--rounds", "2"]) == 0
+assert quant_demo.main(["--device", "cpu", "--n", "8192", "--queries", "64",
+                        "--rounds", "2", "--bits", "4"]) == 0
+assert beyond_hbm_demo.main(["--device", "cpu", "--n", "8192", "--queries",
+                             "64", "--hbm-budget-gb", "0.001"]) == 0
+baseline_dir = tempfile.mkdtemp()
+try:
+    assert build_ladder_baseline.main(
+        ["--n", "2000", "--batch", "32", "--rounds", "1",
+         "--cache-dir", baseline_dir]) == 0
+finally:
+    shutil.rmtree(baseline_dir)
 assert sys.modules["jax"] is None
 assert not [m for m in sys.modules if m.startswith("jax.")]
 loaded = [m for m in sys.modules
