@@ -145,6 +145,24 @@ Phases, each failing the run on a bad check:
     primary's checkpoint.  Kernel 1 runs in those server processes, so
     its launch count holds only the in-process phases.
 
+15. The last four benchmark scripts' ports, each through its ``main``:
+    ``tile_sweep`` (after the sweeps; ``tile_sweep_phase``): kernel 4's
+    ``shipped`` as kernel 1's fused step at ring depths 2, 4, 8 and the
+    most that fit, 1M x 128, B=256, each depth at recall@10 >= 0.99, at
+    or below its bound, launched and captured; ``exact_sweep --int8``
+    (``exact_sweep_phase``): ``resident_topk_auto`` (kernel 1), the
+    single shot and two chunk sizes at recall@10 >= 0.999, the int8
+    coarse rows (kernel 2's fused one first) at coarse recall >= 0.98,
+    kernels 1 and 2 launched and captured; ``traversal_decomp`` (after
+    the graph ops; ``traversal_decomp_phase``) at 1M nodes, degree 16:
+    every piece's time positive and finite, ``full_2hop``'s count equal
+    to ``khop_count`` once and to ``native.bfs_khop``; ``soak`` (after
+    the demos, a child process; ``soak_phase``): 200,000 rows, the
+    reference's closed-loop search client and bulk ingest client
+    through the native gateway, searches answered with finite p50 /
+    p99, every acknowledged write in the store, kernel 1 launched, 16
+    read-backs at recall@10 >= 0.99, RSS printed and not gated.
+
 The mesh steps (``helix_tpu_torch.parallel``) run on a virtual mesh of
 4 shards on ``cuda:0`` (over every card where there are more; every
 other phase runs on a one-device mesh): at the end of the engine phase
@@ -233,6 +251,10 @@ REDUCED = {
              "4's fixed pool of 320 falls below recall 0.95 at 1M)",
     "engine edges": "400,000 labeled edges, from 1,600,000 and then "
                     "800,000",
+    "exact sweep": "chunks 16384,131072 and 16 rounds, from the "
+                   "reference's 8192,16384,32768,65536,131072,262144 and "
+                   "64 (run time)",
+    "soak": "45 s, from the reference's 180 s (run time)",
 }
 
 
@@ -949,31 +971,40 @@ DEMO_N = 500_000
 DEMO_RECALL = 0.95
 
 
+def run_main(name: str, main, argv: list, device: torch.device) -> tuple:
+    """``main(argv + --device)`` in process with its stdout captured:
+    ``(exit code, stdout lines, seconds)``; each line is printed under
+    the card's name."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main([*argv, "--device", device.type])
+    seconds = time.perf_counter() - t
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"{name} on {card_name(device)}: {line}")
+    log(f"{name}: exit {rc} in {seconds:.1f} s")
+    return rc, lines, seconds
+
+
 def demos_phase(device: torch.device, n: int = DEMO_N) -> dict:
     """``quant_demo`` (``--bits 8``, then ``--bits 4``, which must launch
     kernel 3) and ``beyond_hbm_demo`` through their ``main``s at ``n``
     rows, each line printed: recall@10 >= 0.95 for both quantized runs,
     ``beyond_hbm_demo``'s own gate (some nprobe at 0.9).  Returns the
     lines and kernel 3's launches in the int4 run."""
-    import contextlib
-    import io
-
     from helix_tpu_torch.benchmarks import beyond_hbm_demo, quant_demo
 
-    dev = ["--device", "cuda" if device.type == "cuda" else "cpu"]
     out: dict = {"launches": {}}
 
     def run(name, main, argv) -> list:
-        buf = io.StringIO()
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = main([*argv, *dev])
-        lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
-        out[f"{name} seconds"] = round(time.perf_counter() - t, 1)
-        for line in lines:
-            log(f"{name} on {card_name(device)}: {json.dumps(line)}")
+        rc, lines, seconds = run_main(name, main, argv, device)
+        out[f"{name} seconds"] = round(seconds, 1)
         check(rc == 0 and lines, f"{name} exited {rc}")
-        return lines
+        return [json.loads(x) for x in lines]
 
     for bits in (8, 4):
         before = launch_counts()
@@ -999,6 +1030,178 @@ def demos_phase(device: torch.device, n: int = DEMO_N) -> dict:
 
 
 # ---------------------------------------------------------------- engine
+
+
+# ------------------------------------------------ the last four scripts
+
+# tile_sweep's ring depths (0: the most that fit) and the exact sweep's
+# recall floors: the exact and chunked rows, the int8 coarse rows (their
+# 80 candidates against the oracle's top 10: the int8 rung's floor).
+TILE_DEPTHS = "2,4,8,0"
+EXACT_RECALL = 0.999
+EXACT_COARSE_RECALL = 0.98
+# exact_sweep's chunks (C = 15,744 and 125,952 at 1,007,616 padded rows)
+# and rounds, cut from the reference's six chunks and 64 rounds.
+EXACT_CHUNKS = "16384,131072"
+EXACT_ROUNDS = 16
+# the soak's seconds, cut from the reference's 180
+SOAK_SECONDS = 45
+SOAK_TIMEOUT_S = 300
+SOAK_RECALL = 0.99
+
+
+def tile_sweep_phase(device: torch.device, n: int = N_ROWS) -> dict:
+    """``tile_sweep``'s ``main`` (the port of ``benchmarks/tile_sweep.py``)
+    at ``n`` x 128, B=256, ring depths 2, 4, 8 and the most that fit:
+    every depth serves at recall@10 >= 0.99 and at or below the card's
+    bound (the sweep fails a depth above it), and kernel 4's ``shipped``
+    launched and captured at every depth (counted from 0 around the
+    run).  Returns its line and ``shipped``'s eager launches."""
+    from helix_tpu_torch.benchmarks import onepass_sweep as OP
+    from helix_tpu_torch.benchmarks import tile_sweep
+
+    shipped = OP.KERNELS["shipped"]
+    shipped.launches = shipped.captured = 0
+    rc, lines, seconds = run_main("tile_sweep", tile_sweep.main, [
+        "--n", str(n), "--tiles", TILE_DEPTHS], device)
+    check(rc == 0, f"tile_sweep exited {rc}")
+    res = json.loads(lines[-1])
+    rows = res["variants"]
+    check(len(rows) == len(TILE_DEPTHS.split(",")),
+          f"tile_sweep: {len(rows)} rows")
+    for row in rows:
+        check(row["recall_at_10"] >= SWEEP_RECALL,
+              f"tile_sweep depth {row['ring_depth']}: recall@10 "
+              f"{row['recall_at_10']}")
+        if device.type == "cuda":
+            check(row["launches"] > 0 and row["captured"] > 0,
+                  f"tile_sweep depth {row['ring_depth']}: shipped launched "
+                  f"{row['launches']}, captured {row['captured']}")
+    return {"line": res, "launches": shipped.launches, "seconds": seconds}
+
+
+def exact_sweep_phase(device: torch.device, n: int = N_ROWS) -> dict:
+    """``exact_sweep``'s ``main`` (the port of ``benchmarks/exact_sweep.py``)
+    with ``--int8`` at ``n`` x 128, B=256 (chunks and rounds cut:
+    ``REDUCED``): ``resident_topk_auto`` and every exact and chunked row
+    at recall@10 >= 0.999, every int8 coarse row (the fused one first)
+    at coarse recall >= 0.98, kernels 1 and 2 launched and captured
+    (counted from 0 around the run).  Returns its line and each
+    kernel's eager launches."""
+    from helix_tpu_torch.benchmarks import exact_sweep
+
+    reset_launch_counts()
+    rc, lines, seconds = run_main("exact_sweep", exact_sweep.main, [
+        "--n", str(n), "--int8", "--chunks", EXACT_CHUNKS, "--rounds",
+        str(EXACT_ROUNDS)], device)
+    check(rc == 0, f"exact_sweep exited {rc}")
+    res = json.loads(lines[-1])
+    launches = launch_counts()
+    names = [row["variant"] for row in res["variants"]]
+    n_chunks = sum(1 for name in names if name.startswith("chunked_bf16"))
+    check(names[0] == "resident_topk_auto (shipped serving)"
+          and len(names) == 2 + 2 * n_chunks + 1 + (device.type == "cuda")
+          and (n < 1 << 17 or n_chunks == len(EXACT_CHUNKS.split(","))),
+          f"exact_sweep: variants {names}")
+    if device.type == "cuda":
+        check(names[4].startswith("int8_fused_cuda (shipped)"),
+              f"exact_sweep: no fused int8 row: {names}")
+    for row in res["variants"]:
+        if "recall_at_10" in row:
+            check(row["recall_at_10"] >= EXACT_RECALL,
+                  f"exact_sweep {row['variant']}: recall@10 "
+                  f"{row['recall_at_10']}")
+        else:
+            check(row["coarse_recall_at_10"] >= EXACT_COARSE_RECALL,
+                  f"exact_sweep {row['variant']}: coarse recall@10 "
+                  f"{row['coarse_recall_at_10']}")
+    if device.type == "cuda":
+        for kernel in ("bucket_scores", "i8_bucket_scores"):
+            check(launches[kernel] > 0 and res["kernel_captured"][kernel] > 0,
+                  f"exact_sweep: {kernel} launched {launches[kernel]}, "
+                  f"captured {res['kernel_captured'][kernel]}")
+    return {"line": res, "launches": launches, "seconds": seconds}
+
+
+def traversal_decomp_phase(device: torch.device,
+                           n: int = GRAPH_NODES) -> dict:
+    """``traversal_decomp``'s ``main`` (the port of
+    ``benchmarks/traversal_decomp.py``) at ``n`` nodes, degree 16: every
+    piece timed, positive and finite; then, on the same graph built
+    again, ``full_2hop``'s scalar at carry 1 equals ``khop_count`` run
+    once on that carry's start mask and ``native.bfs_khop``'s count."""
+    from helix_tpu_torch import native
+    from helix_tpu_torch.benchmarks import traversal_decomp as TD
+    from helix_tpu_torch.ops import csr as C
+
+    rc, lines, seconds = run_main("traversal_decomp", TD.main, [
+        "--n", str(n), "--deg", str(GRAPH_DEGREE)], device)
+    check(rc == 0, f"traversal_decomp exited {rc}")
+    res = json.loads(lines[-1])
+    pieces = res["pieces_ms"]
+    ctx = TD.build(n, GRAPH_DEGREE, device)
+    check(list(pieces) == list(ctx["pieces"]),
+          f"traversal_decomp: pieces {list(pieces)}")
+    check(all(np.isfinite(v) and v > 0 for v in pieces.values()),
+          f"traversal_decomp: a piece's time is not positive: {pieces}")
+    graph = ctx["graph"]
+    mask = ctx["mask_from"](torch.tensor(1, dtype=torch.int32,
+                                         device=device))
+    once = int(C.khop_count(graph.neighbors, graph.edge_labels, mask,
+                            ctx["label_code"], 2, ctx["keep"]))
+    indptr, dst, lab = ctx["csr"]
+    host, _ = native.bfs_khop(indptr, dst, lab,
+                              mask.cpu().numpy().astype(np.uint8),
+                              ctx["label_code"], 2)
+    want = int((host.astype(bool) & ctx["keep"].cpu().numpy()).sum())
+    check(res["values"]["full_2hop"] == once == want,
+          f"traversal_decomp: full_2hop {res['values']['full_2hop']}, "
+          f"khop_count once {once}, bfs_khop {want}")
+    log(f"traversal_decomp: full_2hop {once} nodes, equal to khop_count "
+        f"once and bfs_khop; eager pieces {res['eager']}")
+    return {"line": res, "seconds": seconds}
+
+
+def soak_phase(device: torch.device, *args: str) -> dict:
+    """``python -m helix_tpu_torch.benchmarks.soak`` (the port of
+    ``benchmarks/soak.py``) as a child process at its 200,000 rows for
+    ``SOAK_SECONDS`` (``args`` adds overrides; a CPU rehearsal passes a
+    small ``--n``): searches answered with finite p50 / p99, every
+    acknowledged write in the store (``nodes_final == ingested_docs >
+    0``), kernel 1 launched in the child while the clients ran, the 16
+    read-backs after the soak at recall@10 >= 0.99.  RSS is printed, not
+    gated (the child's includes the CUDA context).  Returns the line."""
+    root = Path(__file__).resolve().parent
+    argv = [sys.executable, "-m", "helix_tpu_torch.benchmarks.soak",
+            "--seconds", str(SOAK_SECONDS), "--device", device.type, *args]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the child shares the card
+    t = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True,
+                          timeout=SOAK_TIMEOUT_S, cwd=root)
+    seconds = time.perf_counter() - t
+    check(proc.returncode == 0, f"soak exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    res = json.loads(line)
+    log(f"soak on {card_name(device)} ({seconds:.1f} s): {line}")
+    check(res["search_requests"] > 0
+          and np.isfinite([res["p50_ms"], res["p99_ms"]]).all(),
+          f"soak: {res['search_requests']} searches, p50 {res['p50_ms']}, "
+          f"p99 {res['p99_ms']}")
+    check(res["ingested_docs"] > 0
+          and res["nodes_final"] == res["ingested_docs"],
+          f"soak: {res['ingested_docs']} docs acknowledged, "
+          f"{res['nodes_final']} in the store")
+    check(res["post_soak_recall_at_10"] >= SOAK_RECALL,
+          f"soak: read-back recall@10 {res['post_soak_recall_at_10']}")
+    if device.type == "cuda":
+        check(res["kernel_launches"]["bucket_scores"] > 0,
+              "soak: kernel 1 never launched during the soak")
+    log(f"soak RSS (not gated): start {res['rss_start_mb']} MB, peak "
+        f"{res['rss_peak_mb']} MB, end {res['rss_end_mb']} MB")
+    return {"line": res, "launches": res["kernel_launches"]["bucket_scores"],
+            "seconds": seconds}
 
 
 def clustered(n: int, d: int, n_queries: int, seed: int = 42):
@@ -3327,6 +3530,13 @@ def run_phases() -> int:
         f"({kernels.sweep_library_path().name})")
     print_ptxas(kernels.SWEEP_SOURCES)
     sweeps = timed("sweep", sweep_phase, device)
+    gc.collect()
+    tiles = timed("tile sweep", tile_sweep_phase, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    exact = timed("exact sweep", exact_sweep_phase, device)
+    gc.collect()
+    torch.cuda.empty_cache()
     # Derived from the two phases (kernel and fused step on the kernel
     # phase's random matrix, search_many on the engine's): where one
     # B=256 search_many goes.
@@ -3338,10 +3548,13 @@ def run_phases() -> int:
         f"{eng['batch_ms']:.3f} ms)")
     gc.collect()  # the exact engine's host rows (cycles keep them alive)
     graph_ops = timed("graph ops", graph_ops_phase, device, eng["first_rows"])
+    decomp = timed("traversal decomp", traversal_decomp_phase, device)
+    gc.collect()
     ladder = timed("ladder", ladder_phase, device)
     gc.collect()
     demos = timed("demos", demos_phase, device)
     gc.collect()
+    soak = timed("soak", soak_phase, device)
     l2 = timed("l2", l2_phase, device)
     log(f"l2 on {card_line}: " + json.dumps(l2, default=float))
     gc.collect()
@@ -3360,7 +3573,8 @@ def run_phases() -> int:
     log(f"phase seconds: {json.dumps(seconds)}, run so far "
         f"{time.perf_counter() - start:.1f} s")
     log("device paths: " + json.dumps({
-        "graph_ops": graph_ops, "engine_graph": {
+        "graph_ops": graph_ops, "traversal_decomp": decomp["line"],
+        "engine_graph": {
             k: v for k, v in eng["graph"].items()
             if k not in ("requests", "answers")},
         "ivf": {k: v for k, v in ladder.items() if k.startswith("ivf")},
@@ -3373,14 +3587,20 @@ def run_phases() -> int:
     # (in its own process), the exact engine, the serve phase, the mesh
     # (kernel 2 also serves i8_sweep's shipped row); kernels 1-3 in
     # bench_torch.py --ladder (its own process), kernel 3 in quant_demo
-    # --bits 4; kernels 4 and 5 on the sweep phase's two entry points
+    # --bits 4; kernels 4 and 5 on the sweep phase's two entry points;
+    # kernels 1 and 2 in exact_sweep, kernel 1 in the soak (its own
+    # process), kernel 4's shipped in tile_sweep
     launches = {"bucket_scores": bench["launches"] + eng["launches"]
-                + serve["launches"] + eng["mesh"]["launches"],
+                + serve["launches"] + eng["mesh"]["launches"]
+                + soak["launches"],
                 **ladder["launches"]}
     launches["i8_bucket_scores"] += sweeps.pop("launches_i8_bucket_scores")
     for name, count in ladder_bench["launches"].items():
         launches[name] += count
     launches["i4_bucket_scores"] += demos["launches"]["i4_bucket_scores"]
+    for name in ("bucket_scores", "i8_bucket_scores"):
+        launches[name] += exact["launches"][name]
+    sweeps["onepass_sweep/shipped"]["launches"] += tiles["launches"]
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
     entries = [{"name": name, "route": "cuda", "source": source,

@@ -198,11 +198,12 @@ def log(msg: str) -> None:
 
 
 def sweep(args: argparse.Namespace, ops: dict, queries: np.ndarray,
-          oracle: np.ndarray) -> tuple[dict, list]:
-    """Every variant at every ring depth of ``args.tiles``: the fused
-    step's QPS (``timed_scan_qps``) and recall@k against ``oracle`` on
-    ``queries[:batch]``.  Returns the JSON line's object and the names of
-    the variants that failed."""
+          oracle: np.ndarray, variants: tuple = VARIANTS
+          ) -> tuple[dict, list]:
+    """Each of ``variants`` at every ring depth of ``args.tiles``: the
+    fused step's QPS (``timed_scan_qps``) and recall@k against ``oracle``
+    on ``queries[:batch]``.  Returns the JSON line's object and the names
+    of the variants that failed."""
     device = ops["xs16"].device
     batch, k, d = args.batch, args.k, args.d
     xs16, xs32, n_valid = ops["xs16"], ops["xs32"], ops["n_valid"]
@@ -214,11 +215,12 @@ def sweep(args: argparse.Namespace, ops: dict, queries: np.ndarray,
         bytes_read=n_pad * dim_pad * 2,
         mxu_ops=2.0 * batch * n_pad * dim_pad, dtype="bf16", device=device)
     if floor_s:
-        log(f"# roofline: {batch / floor_s:,.0f} QPS")
+        log(f"# roofline: {floor_s * 1e3:.3f} ms/batch "
+            f"({batch / floor_s:,.0f} QPS)")
     bound = kernel_bound(n_pad, dim_pad, batch, device)
 
     results, failed = [], []
-    for name in VARIANTS:
+    for name in variants:
         kernel = KERNELS[name]
         for depth in (int(t) for t in args.tiles.split(",") if t):
             def winners(x16, q16, nv, depth=depth, kernel=kernel):

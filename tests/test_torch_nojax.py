@@ -17,7 +17,10 @@ stored vector route on the fast path, then the kernel sweeps' entry
 points (``benchmarks.onepass_sweep``, ``benchmarks.i8_sweep``) on the
 CPU at 12,000 rows, and the ladder's (``benchmarks.ladder``,
 ``quant_demo``, ``beyond_hbm_demo`` at 8,192 rows,
-``build_ladder_baseline`` at 2,000 into a temporary cache).  At the end
+``build_ladder_baseline`` at 2,000 into a temporary cache), and the
+last four scripts' (``tile_sweep``, ``exact_sweep``,
+``traversal_decomp`` at 8,192, ``soak`` at 1,024 rows for 1 s).  At the
+end
 no ``helix_tpu``
 module (the package or any of its submodules) may be in
 ``sys.modules``.
@@ -237,6 +240,17 @@ try:
          "--cache-dir", baseline_dir]) == 0
 finally:
     shutil.rmtree(baseline_dir)
+
+from helix_tpu_torch.benchmarks import (exact_sweep, soak, tile_sweep,
+                                        traversal_decomp)
+
+assert tile_sweep.main(["--device", "cpu", "--n", "8192", "--tiles", "2",
+                        "--rounds", "2"]) == 0
+assert exact_sweep.main(["--device", "cpu", "--n", "8192", "--chunks",
+                         "4096", "--int8", "--rounds", "2"]) == 0
+assert traversal_decomp.main(["--device", "cpu", "--n", "8192", "--deg",
+                              "2", "--rounds", "2"]) == 0
+assert soak.main(["--device", "cpu", "--n", "1024", "--seconds", "1"]) == 0
 assert sys.modules["jax"] is None
 assert not [m for m in sys.modules if m.startswith("jax.")]
 loaded = [m for m in sys.modules
