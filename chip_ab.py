@@ -24,7 +24,12 @@ quantized by the checkout's own ``QuantizedResident`` / ``Int4Resident``
 ``QuantizedResident.search`` with ``rerank_device=True`` over the first
 500,000 rows (the f16 device re-rank; k=10, 256 queries): the median wall
 time of 16 batches, recall@10 of the first against the oracle (>= 0.98),
-and the device busy time of 4 profiled batches.  The runs go parent,
+and the device busy time of 4 profiled batches; the same rung with the
+host f32 re-rank (``rerank_device=False``) and the int4 rung
+(``Int4Resident.search``, kernel 3 and the host re-rank) over the same
+rows, median wall time of 16 batches each (recall@10 >= 0.98 and 0.95):
+the engine's int8 and int4 batches at 250k / 500k rows are these steps
+plus the host's share.  The runs go parent,
 change, change, parent,
 ROUNDS times (default 1), each printing one JSON line; the last line is
 a summary with the median of each side's runs, the number of pairs
@@ -183,6 +188,26 @@ def child(root: str) -> None:
         int8_first = out if int8_first is None else int8_first
     int8_busy, int8_profiled_ms = profiled(
         lambda: int8_search(queries[:BATCH]))
+
+    def rung_ms(fn):
+        """Median wall time of N_BATCHES B=256 calls of ``fn`` after 3
+        warm-ups, and the first batch's answer."""
+        for _ in range(3):
+            fn(queries[:BATCH])
+        times, first_out = [], None
+        for b in range(N_BATCHES):
+            qs = queries[b * BATCH:(b + 1) * BATCH]
+            t = time.perf_counter()
+            out = fn(qs)
+            times.append((time.perf_counter() - t) * 1e3)
+            first_out = out if first_out is None else first_out
+        return float(np.median(times)), first_out
+
+    int8_host_ms, int8_host_first = rung_ms(
+        lambda qs: quant.search(small, qs, K, live, "cosine"))
+    int4 = Q4.Int4Resident()
+    int4_ms, int4_first = rung_ms(
+        lambda qs: int4.search(small, qs, K, live, "cosine"))
     print(json.dumps({
         "batch_ms": float(np.median(batch_ms)),
         "device_busy_ms": busy,
@@ -200,6 +225,10 @@ def child(root: str) -> None:
         "int8_profiled_batch_ms": int8_profiled_ms,
         "recall": recall,
         "int8_recall": recall_of(int8_first[1], data[:N_INT8]),
+        "int8_host_batch_ms": int8_host_ms,
+        "int8_host_recall": recall_of(int8_host_first[1], data[:N_INT8]),
+        "int4_batch_ms": int4_ms,
+        "int4_recall": recall_of(int4_first[1], data[:N_INT8]),
     }))
 
 
@@ -229,9 +258,13 @@ def main() -> int:
             print(proc.stderr[-3000:], file=sys.stderr)
             return 1
         result = json.loads(proc.stdout.strip().splitlines()[-1])
-        if result["recall"] < 0.99 or result["int8_recall"] < 0.98:
+        if (result["recall"] < 0.99 or result["int8_recall"] < 0.98
+                or result["int8_host_recall"] < 0.98
+                or result["int4_recall"] < 0.95):
             print(f"chip_ab: {side} recall@10 {result['recall']} (exact), "
-                  f"{result['int8_recall']} (int8)", file=sys.stderr)
+                  f"{result['int8_recall']} / {result['int8_host_recall']} "
+                  f"(int8 device / host re-rank), {result['int4_recall']} "
+                  "(int4)", file=sys.stderr)
             return 1
         print(json.dumps({"side": side, **result}), flush=True)
         results.append(result)

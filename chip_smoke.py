@@ -22,6 +22,19 @@ Phases, each failing the run on a bad check:
    version, the product-only ``torch.matmul`` and a device copy of the
    rows timed with CUDA events (median over fresh query batches, the
    order rotating).
+   Then the selection kernel (``select_phase``): ``select_topk``
+   (``csrc/select_topk.cu``, the port of ``jax.lax.approx_max_k`` and
+   ``jax.lax.top_k``) against its plain version bit for bit, ids and
+   value bits, on kernel 1's transposed [256, 15,744] winners (k=128 and
+   the int4 pool's 977), their top 128 (k=16), the l2 exact rung's
+   [256, 1,000,448] f32 scores, the cosine single shot's bf16 scores,
+   10M rows' [256, 156,288] buckets (k=128 and the int4 pool's 9,765),
+   the traversal's compaction of 1M int32 slots to 65,536 and tie-heavy
+   rows with +-0.0 and +-NaN; timed beside its plain version and
+   ``torch.topk`` at the fused tail's (on fresh inputs), the re-rank's,
+   the l2, the bf16 and the 10M int4 pool's shapes.  Every phase counts
+   its ``select_topk`` launches from 0; the engine, exact sweep,
+   traversal decomp, ladder, l2 and serve phases must launch it.
 3. Kernels 2 and 3: ``i8_bucket_scores`` and ``i4_bucket_scores`` against
    their plain versions at the main shape on random unit rows quantized
    by the port's own quantizers, and at B=128 and D=768 (queries streamed
@@ -117,8 +130,8 @@ Phases, each failing the run on a bad check:
    (tie-aware against a float64 oracle) to its floor (0.99, 0.98, 0.98,
    0.95, 1.0) and ``$distance`` to a relative 1e-6.  No bucket-scores
    kernel may launch (the reference fuses cosine only).  The exact rung's
-   device step is split with CUDA events: the scores, the full stable
-   sort of [256, 1,000,448] f32 that selects the candidates, and
+   device step is split with CUDA events: the scores, the selection of
+   the candidates from [256, 1,000,448] f32 (the selection kernel), and
    ``topk_resident`` whole.  Then the gateway serves the exact index:
    128 ``vfast`` requests on the fast path, equal to the in-process
    answers.
@@ -472,6 +485,184 @@ def check_tie_order(xs16, xs32, sq, queries) -> None:
         xs16[dups], xs32[dups] = saved16, saved32
     log(f"tie order: {len(want)} equal rows in {len(want)} buckets come back "
         f"lowest position first, identical on 5 calls of B={qs.shape[0]}")
+
+
+# ---------------------------------------------------------------- select
+
+SELECT_K = 128          # the fused step's k_cand and the l2 rung's k_scan
+SELECT_RERANK_K = 16    # the engine's k bucket for k=10
+INT4_POOL_1M = 977      # quant4.recall_safe_pool_int4(1,000,000)
+INT4_POOL_10M = 9_765   # quant4.recall_safe_pool_int4(10,000,000)
+COMPACT_K = 65_536      # traversal_decomp's widest frontier compaction
+SELECT_RING = 8         # fused-tail inputs in turn: 8 x 16 MB past the L2
+TEN_M_BUCKETS = 156_288  # 10M rows padded to 8192, over 64-row buckets
+L2_ROWS = 1_000_448     # 1M rows padded to PackedMatrix.ROW_PAD
+
+
+def tie_heavy(rows: int, width: int, seed: int) -> torch.Tensor:
+    """Few distinct f32 values (ties everywhere) with +0.0 and -0.0, +-inf,
+    the fused paths' sentinel and +-NaN sprinkled in (as the CPU tests'
+    ``tests/test_torch_select.py``)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-4, 4, (rows, width)).astype(np.float32) * 0.25
+    roll = rng.random((rows, width))
+    x[roll < 0.05] = -np.inf
+    x[(roll >= 0.05) & (roll < 0.10)] = -3.0e38
+    x[(roll >= 0.10) & (roll < 0.16)] = -0.0
+    x[(roll >= 0.16) & (roll < 0.18)] = np.inf
+    x[(roll >= 0.18) & (roll < 0.19)] = np.nan
+    x.view(np.uint32)[(roll >= 0.19) & (roll < 0.20)] = 0xFFC00000
+    return torch.from_numpy(x)
+
+
+def check_select(name: str, x: torch.Tensor, k: int) -> None:
+    """The kernel against its plain version on ``x``: equal ids, equal
+    value bits."""
+    from helix_tpu_torch.ops import topk as T
+
+    got_v, got_i = T.select_topk(x, k)
+    want_v, want_i = T.select_topk_reference(x, k)
+    torch.cuda.synchronize()
+    wide = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    same_ids = got_i == want_i
+    check(bool(same_ids.all()), f"select {name}: {int((~same_ids).sum())} "
+          f"of {same_ids.numel()} ids differ from the plain version")
+    check(torch.equal(got_v.view(wide), want_v.view(wide)),
+          f"select {name}: value bits differ from the plain version")
+
+
+def select_bound(x: torch.Tensor, k: int) -> tuple[float, str]:
+    """Bytes: the row read once, ``k`` values and int64 ids written."""
+    rows, width = x.shape
+    return bound(rows * width * x.element_size()
+                 + rows * k * (x.element_size() + 8), 0.0, PEAK_BF16_PER_S)
+
+
+class Ring:
+    """Inputs handed out in turn, so that calls issued back to back read
+    different tensors."""
+
+    def __init__(self, items: list):
+        self.items, self.i = items, 0
+
+    def next(self) -> torch.Tensor:
+        self.i = (self.i + 1) % len(self.items)
+        return self.items[self.i]
+
+
+def select_phase(device: torch.device) -> dict:
+    """The selection kernel ``select_topk`` (``csrc/select_topk.cu``)
+    against its plain version bit for bit (ids and value bits) at the
+    main path's shapes: kernel 1's transposed winners [256, 15,744] at
+    k=128 and at the int4 pool's k=977, their top 128 [256, 128] at
+    k=16 (the re-rank), the l2 exact rung's scores [256, 1,000,448] f32
+    and the cosine single shot's bf16 scores [256, 1,007,616] at k=128,
+    10M rows' transposed buckets [256, 156,288] at k=128 and at 10M's
+    int4 pool k=9,765, traversal_decomp's compaction of 1M int32 to
+    k=65,536, and tie-heavy rows (+-0.0, +-inf, +-NaN; one, two and
+    three passes, and past the one-block k).  The kernel, its plain
+    version and ``torch.topk(sorted=True)`` (the library yardstick,
+    whose tie order differs) are timed against the bound at the fused
+    tail's, the re-rank's, the l2, the bf16 and the 10M int4 pool's
+    shapes: the fused tail's and the re-rank's on SELECT_RING fresh
+    inputs taken in turn (128 MB, so each call reads its input from
+    device memory, not the 50 MB L2), the others on one input each
+    (0.16-1.02 GB, far past the L2)."""
+    from helix_tpu_torch.ops import fused_topk as F
+    from helix_tpu_torch.ops import topk as T
+    from helix_tpu_torch.ops.distance import _coarse_dot
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    n = F.pad_rows_for_fused(N_ROWS)
+    xs16 = unit_rows(n, DIM, gen, device)
+    q16 = unit_rows(BATCH, DIM, gen, device)
+    winners = F.bucket_scores(xs16, q16, N_ROWS).T     # [256, buckets]
+    top128, _ = T.select_topk(winners, SELECT_K)
+    fresh = [winners] + [
+        F.bucket_scores(xs16, unit_rows(BATCH, DIM, gen, device), N_ROWS).T
+        for _ in range(SELECT_RING - 1)]
+    fresh_top = [T.select_topk(w, SELECT_K)[0] for w in fresh]
+    cols = torch.arange(n, device=device)
+    cosine16 = torch.where((cols < N_ROWS)[None, :],
+                           _coarse_dot(q16, xs16).to(torch.bfloat16),
+                           -3.0e38)
+    del xs16, cols
+    # SIFT-shaped rows (integers in [0, 255], exact in bf16) and queries:
+    # the l2 rung's single-shot scores 2 q.x - |x|^2, rows past 1M masked
+    rows_l2 = torch.randint(0, 256, (L2_ROWS, DIM), generator=gen,
+                            device=device).to(torch.bfloat16)
+    q_l2 = torch.randint(0, 256, (BATCH, DIM), generator=gen,
+                         device=device).to(torch.bfloat16)
+    sq = rows_l2.float().square().sum(dim=1)
+    cols = torch.arange(L2_ROWS, device=device)
+    l2 = torch.where((cols < N_ROWS)[None, :],
+                     2.0 * _coarse_dot(q_l2, rows_l2) - sq[None, :],
+                     float("-inf"))
+    del rows_l2, q_l2, sq, cols
+    ten_m = torch.randn((TEN_M_BUCKETS, BATCH), generator=gen,
+                        device=device).T
+    # traversal_decomp's compaction: the live slots' ids, -1 elsewhere
+    slots = torch.arange(N_ROWS, dtype=torch.int32, device=device)
+    live = torch.rand(N_ROWS, generator=gen, device=device) < 0.1
+    frontier = torch.where(live, slots, -1)[None, :]
+    del slots, live
+    timed_shapes = {
+        "fused tail [256, 15744] f32 (transposed) k=128": (Ring(fresh),
+                                                           SELECT_K),
+        "re-rank [256, 128] f32 k=16": (Ring(fresh_top), SELECT_RERANK_K),
+        "l2 exact [256, 1000448] f32 k=128": (Ring([l2]), SELECT_K),
+        "cosine single shot [256, 1007616] bf16 k=128": (Ring([cosine16]),
+                                                         SELECT_K),
+        "10M int4 pool [256, 156288] f32 (transposed) k=9765": (
+            Ring([ten_m]), INT4_POOL_10M),
+    }
+    checked = {name: (ring.items[0], k)
+               for name, (ring, k) in timed_shapes.items()}
+    checked.update({
+        "int4 pool [256, 15744] f32 (transposed) k=977": (winners,
+                                                          INT4_POOL_1M),
+        "10M buckets [256, 156288] f32 (transposed) k=128": (ten_m,
+                                                             SELECT_K),
+        "compaction [1, 1000000] int32 k=65536": (frontier, COMPACT_K),
+    })
+    for rows, width, k in ((256, 15744, SELECT_K), (4, 100_000, T.MAX_K),
+                           (2, L2_ROWS, INT4_POOL_1M), (3, 17, 5),
+                           (1, 1, 1), (3, 40_000, 5_000),
+                           (2, 30_000, 30_000), (2, 200_000, 20_000)):
+        x = tie_heavy(rows, width, rows + k).to(device)
+        checked[f"tie-heavy [{rows}, {width}] f32 k={k}"] = (x, k)
+        checked[f"tie-heavy [{rows}, {width}] f32 (transposed) k={k}"] = (
+            x.T.contiguous().T, k)
+        checked[f"tie-heavy [{rows}, {width}] bf16 k={k}"] = (
+            x.to(torch.bfloat16), k)
+    ints = torch.randint(-5, 5, (8, 40_000), generator=gen, device=device,
+                         dtype=torch.int32)
+    checked["int32 [8, 40000] k=300"] = (ints, 300)
+    for name, (x, k) in checked.items():
+        check_select(name, x, k)
+    log(f"kernel select_topk equals its plain version bit for bit (ids and "
+        f"value bits) on {len(checked)} inputs: {', '.join(checked)}")
+
+    def library(x, k):  # another tie order: the yardstick only
+        return torch.topk(x, k, dim=-1, sorted=True)
+
+    out = None
+    sides = {name: (lambda ring, k, fn=fn: fn(ring.next(), k))
+             for name, fn in (("kernel", T.select_topk),
+                              ("plain", T.select_topk_reference),
+                              ("library", library))}
+    for name, (ring, k) in timed_shapes.items():
+        t = time_sides(sides, [(ring, k)] * KERNEL_RUNS)
+        b_ms, b_by = select_bound(ring.items[0], k)
+        log(f"kernel select_topk {name}: {t['kernel']:.4f} ms (plain "
+            f"{t['plain']:.4f} ms, torch.topk {t['library']:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}: {b_ms / t['kernel']:.1%} of the "
+            "bound)")
+        if out is None:  # the kernels line carries the fused tail's
+            out = {"max_abs_err": 0.0, "ms": t["kernel"],
+                   "plain_ms": t["plain"], "library_ms": t["library"],
+                   "bound_ms": b_ms, "bound_by": b_by}
+    return out
 
 
 def check_bitwise(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1851,15 +2042,15 @@ def l2_reads(engine, part, data: np.ndarray, queries: np.ndarray,
     return res, hits
 
 
-def l2_sort_split(part, qb: np.ndarray, device: torch.device) -> dict:
+def l2_select_split(part, qb: np.ndarray, device: torch.device) -> dict:
     """The exact rung's B=256 device step at the search's own shapes,
     timed apart with CUDA events: the single-shot scores ``2 q.x -
-    |x|^2`` over every padded row, the full stable sort that selects
-    ``rerank * k_bucket`` candidates from them (``distance._top_k``), and
-    ``topk_resident`` whole (scores, sort, f32 re-rank)."""
-    from helix_tpu_torch.ops.distance import (SINGLE_SHOT_BYTES,
-                                              _coarse_dot, _top_k,
-                                              topk_resident)
+    |x|^2`` over every padded row, the selection of ``rerank * k_bucket``
+    candidates from them (``distance._top_k``: the selection kernel),
+    and ``topk_resident`` whole (scores, selection, f32
+    re-rank)."""
+    from helix_tpu_torch.ops.distance import (SINGLE_SHOT_BYTES, _coarse_dot,
+                                              _top_k, topk_resident)
 
     matrix = part.matrix
     xs16, sq = matrix.device_arrays()
@@ -1880,7 +2071,7 @@ def l2_sort_split(part, qb: np.ndarray, device: torch.device) -> dict:
     out = {"rows": rows, "k_scan": k_scan}
     for name, fn, args, kw in (
             ("scores_ms", scores, (), {}),
-            ("sort_ms", _top_k, (sims, k_scan), {}),
+            ("select_ms", _top_k, (sims, k_scan), {}),
             ("topk_resident_ms", topk_resident, (xs16, xs32, qs, n, sq),
              {"k": k_bucket, "metric": "l2"})):
         cuda_ms(fn, *args, **kw)  # warm-up
@@ -1948,9 +2139,9 @@ def l2_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
     took, recall@10 (tie-aware, float64 oracle) at its floor, relative
     ``$distance``, the first search after the change, single-read p50 /
     p90 and the B=256 median.  No bucket-scores kernel may launch: the
-    reference fuses cosine only.  The exact rung's sort is timed apart
-    (:func:`l2_sort_split`); then the gateway serves the exact index over
-    HTTP (:func:`l2_gateway_step`)."""
+    reference fuses cosine only.  The exact rung's selection is timed
+    apart (:func:`l2_select_split`); then the gateway serves the exact
+    index over HTTP (:func:`l2_gateway_step`)."""
     from helix_tpu_torch.server.native_gateway import NativeGateway
 
     data, queries = sift_dataset(n_rows, DIM, N_PROBE + N_BATCHES * BATCH)
@@ -1998,17 +2189,18 @@ def l2_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
             if rung == "exact":
                 exact_hits = hits
                 if device.type == "cuda":
-                    split = l2_sort_split(part, queries[N_PROBE:N_PROBE
-                                                        + BATCH], device)
-                    split["share_of_batch"] = split["sort_ms"] \
+                    split = l2_select_split(part, queries[N_PROBE:N_PROBE
+                                                          + BATCH], device)
+                    split["share_of_batch"] = split["select_ms"] \
                         / res["batch_ms"]
                     res["split"] = split
                     log(f"l2 exact B={BATCH} device step on "
                         f"{card_name(device)}: scores {split['scores_ms']:.3f}"
-                        f" ms, stable sort of [{BATCH}, {split['rows']}] f32 "
-                        f"for top-{split['k_scan']} {split['sort_ms']:.3f} ms"
-                        f", topk_resident {split['topk_resident_ms']:.3f} ms;"
-                        f" the sort is {split['share_of_batch']:.1%} of the "
+                        f" ms, selection of top-{split['k_scan']} from "
+                        f"[{BATCH}, {split['rows']}] f32 "
+                        f"{split['select_ms']:.3f} ms, topk_resident "
+                        f"{split['topk_resident_ms']:.3f} ms; the selection "
+                        f"is {split['share_of_batch']:.1%} of the "
                         f"search_many median")
             out[rung] = res
         counts = launch_counts()
@@ -3443,7 +3635,14 @@ KERNELS = (
      "helix_tpu/ops/quant.py:573"),
     ("i4_bucket_scores", "helix_tpu_torch/csrc/i4_bucket_scores.cu",
      "helix_tpu/ops/quant4.py:249"),
+    ("select_topk", "helix_tpu_torch/csrc/select_topk.cu",
+     "helix_tpu/ops/fused_topk.py:244 jax.lax.approx_max_k and :262 "
+     "jax.lax.top_k (XLA ops, no Pallas kernel)"),
 )
+# The in-process phases whose paths select (every selection the
+# selection kernel: it launches in each).
+SELECTING = ("engine", "exact sweep", "traversal decomp", "ladder", "l2",
+             "serve")
 
 
 def print_ptxas(sources) -> None:
@@ -3494,15 +3693,23 @@ def run_phases() -> int:
     native.load()
     log(f"native host library build + load: {time.perf_counter() - t:.1f} s")
 
+    from helix_tpu_torch.ops.topk import select_topk
+
     seconds: dict = {}
+    # select_topk's launches in each phase, set to 0 just before it and
+    # read just after
+    selects: dict = {}
 
     def timed(name, phase, *args):
+        select_topk.launches = 0
         t = time.perf_counter()
         result = phase(*args)
         seconds[name] = round(time.perf_counter() - t, 1)
+        selects[name] = select_topk.launches
         return result
 
     kern = {"bucket_scores": timed("kernel", kernel_phase, device)}
+    kern["select_topk"] = timed("select", select_phase, device)
     kern.update(timed("quant kernels", quant_kernel_phase, device))
     bench = timed("bench", bench_phase, device)
     ladder_bench = timed("ladder bench", ladder_bench_phase, device)
@@ -3569,6 +3776,10 @@ def run_phases() -> int:
     gc.collect()
     cluster = timed("cluster", cluster_phase, device, handoff)
     log(f"cluster on {card_line}: " + json.dumps(cluster, default=float))
+    log(f"select_topk launches per phase: {json.dumps(selects)}")
+    for name in SELECTING:
+        check(selects[name] > 0,
+              f"{name} phase: the selection kernel never launched")
     log(f"reduced: {json.dumps(REDUCED)}")
     log(f"phase seconds: {json.dumps(seconds)}, run so far "
         f"{time.perf_counter() - start:.1f} s")
@@ -3595,12 +3806,20 @@ def run_phases() -> int:
                 + soak["launches"],
                 **ladder["launches"]}
     launches["i8_bucket_scores"] += sweeps.pop("launches_i8_bucket_scores")
-    for name, count in ladder_bench["launches"].items():
-        launches[name] += count
+    for name in ("bucket_scores", "i8_bucket_scores", "i4_bucket_scores"):
+        launches[name] += ladder_bench["launches"][name]
     launches["i4_bucket_scores"] += demos["launches"]["i4_bucket_scores"]
     for name in ("bucket_scores", "i8_bucket_scores"):
         launches[name] += exact["launches"][name]
     sweeps["onepass_sweep/shipped"]["launches"] += tiles["launches"]
+    # the selection kernel on every in-process path that runs it (not
+    # the phases that hold kernels to their plain versions) and in the
+    # ladder bench's process; bench_torch.py, the soak and the cluster's
+    # servers count kernel 1 only
+    launches["select_topk"] = sum(
+        count for name, count in selects.items()
+        if name not in ("kernel", "select", "quant kernels"))
+    launches["select_topk"] += ladder_bench["launches"]["select_topk"]
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
     entries = [{"name": name, "route": "cuda", "source": source,

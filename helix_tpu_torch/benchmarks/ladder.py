@@ -151,10 +151,11 @@ def kernel_counts() -> dict:
     from ..ops import fused_topk as F
     from ..ops import quant as Q
     from ..ops import quant4 as Q4
+    from ..ops import topk as T
 
     return {w.__name__: (w.launches, w.captured)
             for w in (F.bucket_scores, Q.i8_bucket_scores,
-                      Q4.i4_bucket_scores)}
+                      Q4.i4_bucket_scores, T.select_topk)}
 
 
 def release(device: torch.device) -> None:

@@ -18,7 +18,12 @@ keeps that report in :data:`BUILD_LOG`.  The kernels use no CUTLASS
 header: ``csrc/hopper.cuh``, which all three include, writes their TMA,
 ``mbarrier`` and ``wgmma`` instructions as inline PTX and includes only
 the toolkit's ``cuda.h`` (for the tensor-map type; libcuda's encoder is
-fetched with ``cudaGetDriverEntryPoint``, not linked).
+fetched with ``cudaGetDriverEntryPoint``, not linked).  The serving
+library also holds the row-wise top-k selection ``csrc/select_topk.cu``
+(``ops/topk.py``), which takes only the header's shared-memory opt-in.
+
+Every wrapper counts its kernel's launches (:func:`count_launch`) and
+raises on a refused launch (:func:`check_launch`).
 
 The kernel sweeps' sources (``SWEEP_SOURCES``: kernels 4 and 5, the
 ports of ``benchmarks/onepass_sweep.py`` and ``benchmarks/i8_sweep.py``)
@@ -44,6 +49,7 @@ SOURCES = (
     _HERE / "csrc" / "bucket_scores.cu",
     _HERE / "csrc" / "i8_bucket_scores.cu",
     _HERE / "csrc" / "i4_bucket_scores.cu",
+    _HERE / "csrc" / "select_topk.cu",
 )
 HEADERS = (_HERE / "csrc" / "hopper.cuh",)
 SWEEP_SOURCES = (
@@ -180,8 +186,44 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p,
         ]
+        lib.hx_select_topk.restype = ctypes.c_int
+        lib.hx_select_topk.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p,
+        ]
         _LIB = lib
         return lib
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, device) -> None:
+    """One more launch of ``wrapper``'s kernel, just issued on
+    ``device``'s current stream; where that stream is capturing a CUDA
+    graph nothing launches (the kernel becomes a node that launches at
+    each replay), so count one more ``wrapper.captured`` instead."""
+    import torch
+
+    with torch.cuda.device(device):
+        capturing = torch.cuda.is_current_stream_capturing()
+    with _LAUNCH_LOCK:  # searches may run on several threads
+        if capturing:
+            wrapper.captured += 1
+        else:
+            wrapper.launches += 1
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise unless a kernel's C entry returned 0."""
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: code {rc} (a CUDA error; -1: no "
+            "cuTensorMapEncodeTiled, -2: tensor map refused, -3: shape "
+            "refused)"
+        )
 
 
 # The sweep kernels' C entries (csrc/sweep.cuh: HX_SWEEP_ENTRY): kernel 4

@@ -10,8 +10,10 @@ re-rank runs with TF32 off (:func:`require_fp32_matmul`), so
 
 Deliberate differences from the reference:
 
-- ``approx_max_k`` becomes an exact top-k; :func:`_top_k` breaks ties
-  toward the lower index, as ``lax.top_k`` does.
+- ``approx_max_k`` becomes an exact top-k in ``lax.top_k``'s order, ties
+  toward the lower index (as ``approx_max_k`` is on the CPU): its sites
+  and ``lax.top_k``'s select through :func:`_top_k`, the selection kernel
+  ``csrc/select_topk.cu`` on the card (``ops/topk.py``).
 - ``copy_to_host_async`` becomes a non-blocking copy into pinned host
   tensors plus a recorded CUDA event that ``finalize`` waits on.
 
@@ -24,6 +26,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import topk as _topk
 
 
 def _round_up(x: int, m: int) -> int:
@@ -56,12 +60,14 @@ def require_fp32_matmul() -> None:
 
 
 def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k along the last axis, descending, ties to the lower
-    index (``lax.top_k``'s rule), so candidate sets match the reference
-    even where bf16 scores tie.  A stable sort keeps the rule on CUDA
-    too, where ``torch.topk`` promises no order among equal values."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    """``lax.top_k``'s counterpart: exact top-k along the last axis,
+    descending in its total order (+NaN, +inf, ..., +0.0, -0.0, ...,
+    -inf, -NaN), ties to the lower index, so candidate sets match the
+    reference even where bf16 scores tie.  ``approx_max_k``'s
+    counterpart too: exact, as it is on the CPU, where XLA orders f32
+    rows as ``lax.top_k`` does (``ops/topk.py``).  On the card the
+    selection kernel (``ops/topk.select_topk``)."""
+    return _topk.select_topk(x, k)
 
 
 def _coarse_dot(qs16: torch.Tensor, xs16: torch.Tensor) -> torch.Tensor:
@@ -106,6 +112,7 @@ def chunked_topk(
         if metric == "l2":
             sims = 2.0 * sims - sq_norms[start:start + chunk][None, :]
         sims = torch.where((cols < n_valid)[None, :], sims, float("-inf"))
+        # ref :107/:111 (approx_max_k over bf16 operands, else top_k)
         s_chunk, i_local = _top_k(sims, k)
         cat_s = torch.cat([best_s, s_chunk], dim=1)
         cat_i = torch.cat([best_i, cols[i_local]], dim=1)
@@ -142,6 +149,7 @@ def topk_scores(
             sims = 2.0 * sims - sq_norms[None, :]
         cols = torch.arange(n, device=xs.device)
         sims = torch.where((cols < n_valid)[None, :], sims, float("-inf"))
+        # ref :88 approx_max_k (bf16), :92 top_k (f32)
         best_s, best_i = _top_k(sims, k_scan)
     else:
         best_s, best_i = chunked_topk(
@@ -189,7 +197,7 @@ def topk_resident(
         # indices matter; the f32 re-rank below re-scores them).
         sims = _coarse_dot(qs16, xs16).to(torch.bfloat16)
         sims = torch.where((cols < n_valid)[None, :], sims, -3.0e38)
-        best_s16, best_i = _top_k(sims, k_scan)
+        best_s16, best_i = _top_k(sims, k_scan)   # ref :179 approx_max_k
         best_s = best_s16.float()
         best_s = torch.where(best_s <= -1.0e38, float("-inf"), best_s)
     elif b * n * 4 <= SINGLE_SHOT_BYTES:
@@ -197,7 +205,7 @@ def topk_resident(
         if metric == "l2":
             sims = 2.0 * sims - sq_norms[None, :]
         sims = torch.where((cols < n_valid)[None, :], sims, float("-inf"))
-        best_s, best_i = _top_k(sims, k_scan)
+        best_s, best_i = _top_k(sims, k_scan)     # ref :190 approx_max_k
     else:
         # Chunked scan with a running top-k merge: bounds the [B, chunk]
         # score buffer.

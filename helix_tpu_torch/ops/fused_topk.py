@@ -19,10 +19,11 @@ against the JAX kernel.
 Deliberate differences from the reference:
 
 - ``approx_max_k`` becomes an exact top-k (on the CPU the reference's
-  ``approx_max_k`` is exact too).  It and the re-rank's ``lax.top_k``
-  select through :func:`~helix_tpu_torch.ops.distance._top_k`, a stable
-  sort that keeps ``lax.top_k``'s tie rule (the lower position first)
-  on CUDA too.
+  ``approx_max_k`` is exact too): the bucket selection and the
+  re-rank's ``lax.top_k`` both go through
+  :func:`~helix_tpu_torch.ops.distance._top_k`, the selection kernel
+  ``csrc/select_topk.cu`` on the card (``ops/topk.py``), ties to the
+  lower position.
 - The denormal rule is explicit: a packed value with |v| < FLT_MIN
   becomes a signed zero, which is what the TPU and XLA's flush do to a
   row scoring exactly 0 (a zeroed tombstone row).  PyTorch on the CPU
@@ -31,11 +32,10 @@ Deliberate differences from the reference:
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from .. import kernels
+from ..kernels import check_launch, count_launch
 from .distance import _top_k, require_fp32_matmul
 
 # Row padding granularity and bucket width (same values and meaning as
@@ -188,31 +188,6 @@ def bucket_scores(
 
 bucket_scores.launches = 0
 bucket_scores.captured = 0
-_LAUNCH_LOCK = threading.Lock()
-
-
-def count_launch(wrapper, device: torch.device) -> None:
-    """One more launch of ``wrapper``'s kernel, just issued on
-    ``device``'s current stream; where that stream is capturing a CUDA
-    graph nothing launches (the kernel becomes a node that launches at
-    each replay), so count one more ``wrapper.captured`` instead."""
-    with torch.cuda.device(device):
-        capturing = torch.cuda.is_current_stream_capturing()
-    with _LAUNCH_LOCK:  # searches may run on several threads
-        if capturing:
-            wrapper.captured += 1
-        else:
-            wrapper.launches += 1
-
-
-def check_launch(name: str, rc: int) -> None:
-    """Raise unless a kernel's C entry returned 0."""
-    if rc != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: code {rc} (a CUDA error; -1: no "
-            "cuTensorMapEncodeTiled, -2: tensor map refused, -3: shape "
-            "refused)"
-        )
 
 
 def fused_candidates(
@@ -248,7 +223,7 @@ def fused_candidates(
             chunk = torch.nn.functional.pad(chunk, (0, 0, 0, b_pad - b))
         qs16 = chunk.to(torch.bfloat16)
         vals = winners(xs16, qs16, n_valid).T            # [b_pad, buckets]
-        best_s, pos = _top_k(vals, k_cand)
+        best_s, pos = _top_k(vals, k_cand)    # ref :244 approx_max_k
         arg = best_s.view(torch.int32) & (BUCKET - 1)
         best_i = pos * BUCKET + arg
         # Exact f32 re-rank of the candidates (ids clipped like

@@ -25,9 +25,9 @@ Two coarse paths, routed as the reference routes them
 
 Deliberate differences from the reference:
 
-- ``approx_max_k`` becomes an exact top-k (``_top_k``, a stable sort
-  that keeps ``lax.top_k``'s tie rule on CUDA too, in the unfused path
-  and over the bucket winners, as ``fused_topk`` does).
+- ``approx_max_k`` becomes an exact top-k (``distance._top_k``,
+  ties to the lower position, in the unfused path and over the bucket
+  winners, as ``fused_topk`` does; the selection kernel on the card).
 - The fused path serves a CUDA device with cosine rows, ``n >= TILE`` and
   ``dim_pad % 128 == 0``; the TPU's VMEM tile cap does not bind Hopper.
 - :class:`ShardedInt8Search` (the mesh's int8 rung) runs
@@ -149,7 +149,7 @@ def int8_coarse_topk(
         sims = 2.0 * sims - sq_norms[None, :]
     cols = torch.arange(n, device=xs_i8.device)
     sims = torch.where((cols < n_valid)[None, :], sims, float("-inf"))
-    return _top_k(sims, k)
+    return _top_k(sims, k)                    # ref :111 approx_max_k
 
 
 def device_rerank_topk(
@@ -542,7 +542,7 @@ def fused_coarse(bucket_scores_fn, n_rows: int, qs: torch.Tensor, *,
             chunk = torch.nn.functional.pad(chunk, (0, 0, 0, b_pad - b))
         q_i8, q_scales = _quantize_queries(chunk)
         vals = bucket_scores_fn(q_i8).T                  # [b_pad, buckets]
-        best_s, pos = _top_k(vals, k_cand)
+        best_s, pos = _top_k(vals, k_cand)    # ref :654 approx_max_k
         arg = best_s.view(torch.int32) & (BUCKET - 1)
         out_s.append(best_s[:b])
         out_q.append(q_scales[:b, None])

@@ -159,7 +159,7 @@ def int4_coarse_topk(
         sims = 2.0 * sims - sq_norms[None, :]
     cols = torch.arange(n, device=packed.device)
     sims = torch.where((cols < n_valid)[None, :], sims, float("-inf"))
-    return _top_k(sims, k)
+    return _top_k(sims, k)                    # ref :172 approx_max_k
 
 
 # ---------------------------------------------------------------- fused

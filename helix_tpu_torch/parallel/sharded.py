@@ -20,9 +20,10 @@ Deliberate differences from the reference:
 - ``bf16`` and ``use_fused`` default to true on a CUDA mesh (``use_fused``
   for cosine only), where the reference says ``jax.default_backend() ==
   "tpu"``.
-- ``approx_max_k`` becomes an exact top-k (``ops/distance._top_k``, a
-  stable sort: ties go to the lower position, as in ``lax.top_k``); on
-  the CPU the reference's ``approx_max_k`` is exact too.
+- ``approx_max_k`` becomes an exact top-k (``ops/distance._top_k``:
+  ties go to the lower position, as in ``lax.top_k``; the selection
+  kernel on the card); on the CPU the reference's ``approx_max_k`` is
+  exact too.
 - The fused path splits a batch into blocks of at most 256 queries
   (kernel 1 takes B of 128 or 256), where the reference pads the whole
   batch to a multiple of 128; per query the answer is the same.  A shard

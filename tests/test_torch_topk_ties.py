@@ -1,9 +1,11 @@
 """Tie order of the port's selections: ``lax.top_k``'s rule everywhere.
 
-``distance._top_k`` is a stable sort: among equal values the lower
-position comes first, as ``lax.top_k`` returns them, on any device
-(``torch.topk`` promises no order among equal values on CUDA).  It is
-held to ``lax.top_k`` itself here on tie-heavy rows.  The fused exact
+``distance._top_k`` keeps ``lax.top_k``'s total order (+0.0 above -0.0)
+and among equal values puts the lower position first, on any device (the
+selection kernel ``csrc/select_topk.cu`` on the card, its plain version,
+a stable sort of order keys, here; ``torch.topk`` promises no order
+among equal values on CUDA).  It is held to ``lax.top_k`` itself here on
+tie-heavy rows.  The fused exact
 path and the int8 rung's fused coarse path select through it: rows
 duplicated into different buckets come back lower position first, as
 the JAX reference returns them.
@@ -23,13 +25,14 @@ torch.set_num_threads(2)
 
 def tie_heavy(rows: int, width: int, seed: int) -> torch.Tensor:
     """Few distinct values (many ties), with -inf, the masked-row
-    sentinel, +inf and NaN sprinkled in.  No -0.0: XLA's top-k ranks
-    +0.0 above it, the sort ranks the two equal."""
+    sentinel, -0.0 (beside the +0.0 of the draws), +inf and NaN
+    sprinkled in."""
     gen = torch.Generator().manual_seed(seed)
     x = torch.randint(-4, 4, (rows, width), generator=gen).float() * 0.25
     roll = torch.rand((rows, width), generator=gen)
     x[roll < 0.05] = float("-inf")
     x[(roll >= 0.05) & (roll < 0.10)] = TF.NEG_SENTINEL
+    x[(roll >= 0.10) & (roll < 0.13)] = -0.0
     x[(roll >= 0.13) & (roll < 0.15)] = float("inf")
     x[(roll >= 0.15) & (roll < 0.16)] = float("nan")
     return x
