@@ -96,7 +96,11 @@ splits them into ``per_dispatch`` and ``e2e``),
 ``graph_kernel_launches`` (per graph, ``full``, ``half`` and
 ``chained``: kernel 1's nodes ``captured``, its launches in one untimed
 ``profiled_replay`` counted from the profiler's device kernel records,
-and the ``timed_replays``; null off the card), ``graph_peak_bytes`` (the
+and the ``timed_replays``; null off the card), ``launches_by_wrapper``
+(per kernel wrapper a search runs, ``bucket_scores`` and
+``select_topk``: its launches in the ``per_dispatch`` and ``e2e``
+windows and its nodes ``captured`` in the ``half``, ``full`` and
+``chained`` graphs, null off the card), ``graph_peak_bytes`` (the
 largest ``torch.cuda.max_memory_allocated`` increase over a capture)
 and, for a cut run, ``reduced``.
 
@@ -328,6 +332,23 @@ def captured_nodes() -> int:
     return bucket_scores.captured
 
 
+def wrapper_counts() -> dict:
+    """Each kernel wrapper a search runs, kernel 1 and the selection
+    kernel: its ``(launches, captured)`` counts so far."""
+    from helix_tpu_torch.ops.fused_topk import bucket_scores
+    from helix_tpu_torch.ops.topk import select_topk
+
+    return {w.__name__: (w.launches, w.captured)
+            for w in (bucket_scores, select_topk)}
+
+
+def counted_since(first: dict, which: int) -> dict:
+    """Each wrapper's launches (``which`` 0) or captured nodes (1) since
+    ``first`` (a :func:`wrapper_counts`)."""
+    return {name: n[which] - first[name][which]
+            for name, n in wrapper_counts().items()}
+
+
 # Kernel 1's symbol in the profiler's kernel names (not i8_/i4_'s).
 KERNEL1_NAME = re.compile(r"(?<!\w)bucket_scores_kernel\b")
 
@@ -371,7 +392,8 @@ def capture(fn, device: torch.device):
     """``fn()`` captured in a CUDA graph after one warm-up run on a side
     stream (the kernel build, its shared-memory opt-in, cuBLAS's
     handles).  Returns ``(graph, output, kernel 1's nodes captured, peak
-    bytes the capture added)``.  A capture that fails raises."""
+    bytes the capture added, each wrapper's nodes captured)``.  A capture
+    that fails raises."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -380,13 +402,14 @@ def capture(fn, device: torch.device):
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     before = torch.cuda.memory_allocated(device)
-    first = captured_nodes()
+    first, first_all = captured_nodes(), wrapper_counts()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = fn()
     torch.cuda.synchronize(device)
     peak = torch.cuda.max_memory_allocated(device) - before
-    return graph, out, captured_nodes() - first, peak
+    return (graph, out, captured_nodes() - first, peak,
+            counted_since(first_all, 1))
 
 
 def profiled_launches(replay, device: torch.device) -> int:
@@ -477,7 +500,7 @@ def device_throughput(index: ResidentIndex, qbufs: torch.Tensor, d: int,
             "rounds": rounds,
             "full_scan_s_median": round(statistics.median(full_ms) / 1e3, 4),
         },
-        "graph": None, "graph_peak_bytes": 0,
+        "graph": None, "graph_peak_bytes": 0, "captured_by_wrapper": None,
     }
     if graphs is not None:
         names = {half: "half", rounds: "full"}
@@ -493,6 +516,8 @@ def device_throughput(index: ResidentIndex, qbufs: torch.Tensor, d: int,
         check_same_answers(graphs[half][1], eager[:half], "the half graph")
         out["graph"] = graph
         out["graph_peak_bytes"] = max(g[3] for g in graphs.values())
+        out["captured_by_wrapper"] = {name: graphs[r][4]
+                                      for r, name in names.items()}
     return out
 
 
@@ -517,14 +542,16 @@ def serialized_latency(index: ResidentIndex, qbufs: torch.Tensor, d: int,
 
     run = chain
     if device.type == "cuda":
-        cuda_graph, outs, captured, peak = capture(chain, device)
+        cuda_graph, outs, captured, peak, by_wrapper = capture(chain,
+                                                              device)
         run = cuda_graph.replay
     best = float("inf")
     for _ in range(reps):
         fill_unit_queries(qbufs, d, gen)
         sync(device)
         best = min(best, elapsed_ms(run, device))
-    out = {"latency_ms": best / rounds, "graph": None, "graph_peak_bytes": 0}
+    out = {"latency_ms": best / rounds, "graph": None, "graph_peak_bytes": 0,
+           "captured_by_wrapper": None}
     if device.type == "cuda":
         profiled = profiled_launches(cuda_graph.replay, device)
         check_graph_counts("the chained graph", captured, profiled)
@@ -532,6 +559,7 @@ def serialized_latency(index: ResidentIndex, qbufs: torch.Tensor, d: int,
         out["graph"] = {"captured": captured, "profiled_replay": profiled,
                         "timed_replays": reps}
         out["graph_peak_bytes"] = peak
+        out["captured_by_wrapper"] = by_wrapper
     return out
 
 
@@ -542,7 +570,7 @@ def per_dispatch(index: ResidentIndex, batches: list, rounds: int,
     ``reps`` loops."""
     device = batches[0].device
     sync(device)
-    first = launches()
+    first, first_all = launches(), wrapper_counts()
     qps = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -552,7 +580,8 @@ def per_dispatch(index: ResidentIndex, batches: list, rounds: int,
         qps.append(rounds * batches[0].shape[0] / (time.perf_counter() - t0))
         del outs
     log(f"per-dispatch loops: {[round(q, 1) for q in qps]} QPS")
-    return {"qps": statistics.median(qps), "launches": launches() - first}
+    return {"qps": statistics.median(qps), "launches": launches() - first,
+            "by_wrapper": counted_since(first_all, 0)}
 
 
 def end_to_end(index: ResidentIndex, padded: np.ndarray, batch: int,
@@ -560,14 +589,15 @@ def end_to_end(index: ResidentIndex, padded: np.ndarray, batch: int,
     """QPS with each batch's H2D copy, search and D2H copy of the ids."""
     n_batches = len(padded) // batch
     sync(device)
-    first = launches()
+    first, first_all = launches(), wrapper_counts()
     t0 = time.perf_counter()
     for r in range(rounds):
         lo = (r % n_batches) * batch
         qs = torch.from_numpy(padded[lo:lo + batch]).to(device)
         index.search(qs)[1].cpu().numpy()
     dt = time.perf_counter() - t0
-    return {"qps": rounds * batch / dt, "launches": launches() - first}
+    return {"qps": rounds * batch / dt, "launches": launches() - first,
+            "by_wrapper": counted_since(first_all, 0)}
 
 
 def bound_seconds(n_rows: int, dim: int, batch: int,
@@ -1307,6 +1337,16 @@ def run(device: torch.device) -> dict:
         graph_launches = {
             key: dict(thr["graph"][key], chained=lat["graph"][key])
             for key in ("captured", "profiled_replay", "timed_replays")}
+    # kernel 1's and the selection kernel's counts beside each other: the
+    # launches in each eager window, the nodes each graph captured
+    by_wrapper = {
+        name: {"per_dispatch": disp["by_wrapper"][name],
+               "e2e": e2e["by_wrapper"][name],
+               "captured": None if not on_card else dict(
+                   {key: n[name]
+                    for key, n in thr["captured_by_wrapper"].items()},
+                   chained=lat["captured_by_wrapper"][name])}
+        for name in disp["by_wrapper"]}
 
     log("graph reads (2-hop where_, hybrid seed-then-expand)...")
     reads = graph_reads(index, batches, corpus["rng"], per_batch_s, device)
@@ -1359,6 +1399,7 @@ def run(device: torch.device) -> dict:
         "kernel_launches": sum(by_window.values()),
         "kernel_launches_by_window": by_window,
         "graph_kernel_launches": graph_launches,
+        "launches_by_wrapper": by_wrapper,
         "graph_peak_bytes": max(thr["graph_peak_bytes"],
                                 lat["graph_peak_bytes"]),
         **({"reduced": reduced} if reduced else {}),

@@ -29,7 +29,9 @@ host f32 re-rank (``rerank_device=False``) and the int4 rung
 (``Int4Resident.search``, kernel 3 and the host re-rank) over the same
 rows, median wall time of 16 batches each (recall@10 >= 0.98 and 0.95):
 the engine's int8 and int4 batches at 250k / 500k rows are these steps
-plus the host's share.  The runs go parent,
+plus the host's share.  Then the selection kernel ``select_topk`` alone
+at the five shapes ``chip_smoke.py``'s select phase times
+(:func:`select_times`).  The runs go parent,
 change, change, parent,
 ROUNDS times (default 1), each printing one JSON line; the last line is
 a summary with the median of each side's runs, the number of pairs
@@ -44,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -58,6 +61,11 @@ def child(root: str) -> None:
 
     import chip_smoke  # this script's, before ``root`` goes on the path
 
+    # chip_smoke imports this script's helix_tpu_torch (its card module):
+    # drop it, so that the package imported below is the checkout's
+    for name in [m for m in sys.modules
+                 if m.split(".")[0] == "helix_tpu_torch"]:
+        del sys.modules[name]
     sys.path.insert(0, root)
     from helix_tpu_torch import kernels
     from helix_tpu_torch.ops import distance as D
@@ -155,6 +163,7 @@ def child(root: str) -> None:
                                      k=16) for _ in range(2)]
     q1, fused_ms, q3 = np.percentile(fused, [25, 50, 75])
     del xs32, sq
+    select = select_times(xs16, queries)
     # Kernels 2 and 3 alone, on the rows as the rungs quantize them.
     xs_i8, _, _ = Q.QuantizedResident().arrays(matrix)
     packed, _, _, bsc, _ = Q4.Int4Resident().arrays(matrix)
@@ -229,7 +238,54 @@ def child(root: str) -> None:
         "int8_host_recall": recall_of(int8_host_first[1], data[:N_INT8]),
         "int4_batch_ms": int4_ms,
         "int4_recall": recall_of(int4_first[1], data[:N_INT8]),
+        **select,
+        "package": str(Path(kernels.__file__).resolve().parent),
     }))
+
+
+def select_times(xs16, queries) -> dict:
+    """The checkout's ``select_topk`` alone at the five shapes
+    ``chip_smoke.py``'s select phase times (CUDA events over 10
+    back-to-back calls, median of 7): the fused tail on kernel 1's
+    transposed winners [256, 15,744] -> 128 (8 query batches in turn),
+    the re-rank's [256, 128] -> 16 (their top 128), and, on rows drawn on
+    the card from one seed (the same on both sides), l2-shaped f32
+    [256, 1,000,448] -> 128, bf16 [256, 1,007,616] -> 128 and 10M rows'
+    transposed buckets [256, 156,288] -> 9,765."""
+    import torch
+
+    import chip_smoke
+    from helix_tpu_torch.ops import fused_topk as F
+    from helix_tpu_torch.ops import topk as T
+
+    winners = [F.bucket_scores(xs16, torch.from_numpy(
+        queries[b * BATCH:(b + 1) * BATCH]).cuda().to(torch.bfloat16), N).T
+        for b in range(chip_smoke.SELECT_RING)]
+    tops = [T.select_topk(w, chip_smoke.SELECT_K)[0] for w in winners]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shapes = {
+        "fused_tail": (chip_smoke.Ring(winners), chip_smoke.SELECT_K),
+        "rerank": (chip_smoke.Ring(tops), chip_smoke.SELECT_RERANK_K),
+        "l2": (chip_smoke.Ring([torch.randn(
+            (BATCH, chip_smoke.L2_ROWS), generator=gen, device="cuda")]),
+            chip_smoke.SELECT_K),
+        "bf16": (chip_smoke.Ring([torch.randn(
+            (BATCH, F.pad_rows_for_fused(N)), generator=gen,
+            device="cuda").to(
+                torch.bfloat16)]), chip_smoke.SELECT_K),
+        "int4_pool_10m": (chip_smoke.Ring([torch.randn(
+            (chip_smoke.TEN_M_BUCKETS, BATCH), generator=gen,
+            device="cuda").T]), chip_smoke.INT4_POOL_10M),
+    }
+    out = {}
+    for name, (ring, k) in shapes.items():
+        T.select_topk(ring.next(), k)
+        out[f"select_{name}_ms"] = float(np.median([
+            chip_smoke.cuda_ms(lambda: T.select_topk(ring.next(), k),
+                               reps=10) for _ in range(7)]))
+        ring.items.clear()
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -258,6 +314,11 @@ def main() -> int:
             print(proc.stderr[-3000:], file=sys.stderr)
             return 1
         result = json.loads(proc.stdout.strip().splitlines()[-1])
+        package = Path(result.pop("package"))
+        if not package.is_relative_to(Path(sides[side]).resolve()):
+            print(f"chip_ab: the {side} run imported {package}, not the "
+                  f"checkout at {sides[side]}", file=sys.stderr)
+            return 1
         if (result["recall"] < 0.99 or result["int8_recall"] < 0.98
                 or result["int8_host_recall"] < 0.98
                 or result["int4_recall"] < 0.95):

@@ -30,9 +30,15 @@ Phases, each failing the run on a bad check:
    [256, 1,000,448] f32 scores, the cosine single shot's bf16 scores,
    10M rows' [256, 156,288] buckets (k=128 and the int4 pool's 9,765),
    the traversal's compaction of 1M int32 slots to 65,536 and tie-heavy
-   rows with +-0.0 and +-NaN; timed beside its plain version and
-   ``torch.topk`` at the fused tail's (on fresh inputs), the re-rank's,
-   the l2, the bf16 and the 10M int4 pool's shapes.  Every phase counts
+   rows with +-0.0 and +-NaN (the warp path's rows of 1 to 512 columns,
+   transposed views whose row count is no multiple of 8, k at the block
+   path's limit and one past it), each with the kernel's planner held
+   to the port's twin ``topk.plan``; the fused tail's and the
+   re-rank's selections in a CUDA graph; timed beside its plain version
+   and ``torch.topk`` at the fused tail's (on fresh inputs), the
+   re-rank's, the l2, the bf16 and the 10M int4 pool's shapes, and the
+   re-rank split into host time (1,000 enqueues) and device time (a
+   CUDA graph of 100 calls).  Every phase counts
    its ``select_topk`` launches from 0; the engine, exact sweep,
    traversal decomp, ladder, l2 and serve phases must launch it.
 3. Kernels 2 and 3: ``i8_bucket_scores`` and ``i4_bucket_scores`` against
@@ -531,6 +537,99 @@ def check_select(name: str, x: torch.Tensor, k: int) -> None:
           f"select {name}: value bits differ from the plain version")
 
 
+def check_plan(name: str, x: torch.Tensor, k: int) -> None:
+    """The kernel's planner (``hx_select_topk_plan``) against the port's
+    twin ``topk.plan`` at ``x``'s shape."""
+    import ctypes
+
+    from helix_tpu_torch import kernels
+    from helix_tpu_torch.ops import topk as T
+
+    rows, width = x.shape
+    k = min(k, width)
+    out = (ctypes.c_longlong * 64)()
+    rc = kernels.load().hx_select_topk_plan(rows, width, k, out)
+    p = T.plan(rows, width, k)
+    want = [T.PATHS.index(p.path), p.param, len(p.stages), p.scratch]
+    want += [v for stage in p.stages for v in stage]
+    check(rc == 0 and list(out[:len(want)]) == want,
+          f"select {name}: the kernel's plan {list(out[:len(want)])} "
+          f"(rc {rc}) is not the twin's {want}")
+
+
+def check_select_in_graph(winners: torch.Tensor, top: torch.Tensor) -> None:
+    """The fused tail's and the re-rank's selections captured in one CUDA
+    graph and replayed: equal to the plain version bit for bit, counted
+    as captured, not launched."""
+    from helix_tpu_torch.ops import topk as T
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        T.select_topk(winners, SELECT_K)
+        T.select_topk(top, SELECT_RERANK_K)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    launched, captured = T.select_topk.launches, T.select_topk.captured
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [T.select_topk(winners, SELECT_K),
+                T.select_topk(top, SELECT_RERANK_K)]
+    graph.replay()
+    torch.cuda.synchronize()
+    check(T.select_topk.launches == launched
+          and T.select_topk.captured == captured + 2,
+          "select: a captured selection was counted as a launch")
+    for (got_v, got_i), (x, k) in zip(outs, ((winners, SELECT_K),
+                                             (top, SELECT_RERANK_K))):
+        want_v, want_i = T.select_topk_reference(x, k)
+        check(torch.equal(got_i, want_i)
+              and torch.equal(got_v.view(torch.int32),
+                              want_v.view(torch.int32)),
+              "select: the graph's replay differs from the plain version")
+    log("kernel select_topk in a CUDA graph (the fused tail's and the "
+        "re-rank's shapes) equals its plain version bit for bit")
+
+
+def host_device_split(ring: Ring, k: int, calls: int = 1000,
+                      graph_calls: int = 100) -> dict:
+    """The re-rank's selection split into host and device time: the host
+    clock over ``calls`` enqueues with no synchronisation (the host's
+    part of a call), and the CUDA-event time per call of a CUDA graph of
+    ``graph_calls`` of the same calls (the device's part, no host); for
+    the kernel and for ``torch.topk``, in ms per call."""
+    from helix_tpu_torch.ops import topk as T
+
+    def library(x, k):
+        return torch.topk(x, k, dim=-1, sorted=True)
+
+    out = {}
+    for name, fn in (("kernel", T.select_topk), ("torch.topk", library)):
+        for _ in range(10):
+            fn(ring.next(), k)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn(ring.next(), k)
+        host_ms = (time.perf_counter() - t) / calls * 1e3
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(ring.next(), k)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(graph_calls):
+                fn(ring.next(), k)
+        graph.replay()
+        device_ms = cuda_ms(graph.replay, reps=5) / graph_calls
+        out[name] = {"host_ms_per_enqueue": host_ms,
+                     "graph_ms_per_call": device_ms}
+        del graph
+    return out
+
+
 def select_bound(x: torch.Tensor, k: int) -> tuple[float, str]:
     """Bytes: the row read once, ``k`` values and int64 ids written."""
     rows, width = x.shape
@@ -559,8 +658,14 @@ def select_phase(device: torch.device) -> dict:
     and the cosine single shot's bf16 scores [256, 1,007,616] at k=128,
     10M rows' transposed buckets [256, 156,288] at k=128 and at 10M's
     int4 pool k=9,765, traversal_decomp's compaction of 1M int32 to
-    k=65,536, and tie-heavy rows (+-0.0, +-inf, +-NaN; one, two and
-    three passes, and past the one-block k).  The kernel, its plain
+    k=65,536, and tie-heavy rows (+-0.0, +-inf, +-NaN; every path: the
+    warp path's narrow rows, the block path in one and two stages, 8
+    rows a block for transposed views of row counts no multiple of 8,
+    k at the block path's limit and the wide path past it), each with
+    the kernel's planner held to ``topk.plan``; then the fused tail's and
+    the re-rank's selections captured in one CUDA graph and replayed
+    (:func:`check_select_in_graph`), and the re-rank's host and device
+    time apart (:func:`host_device_split`).  The kernel, its plain
     version and ``torch.topk(sorted=True)`` (the library yardstick,
     whose tie order differs) are timed against the bound at the fused
     tail's, the re-rank's, the l2, the bf16 and the 10M int4 pool's
@@ -625,10 +730,18 @@ def select_phase(device: torch.device) -> dict:
                                                              SELECT_K),
         "compaction [1, 1000000] int32 k=65536": (frontier, COMPACT_K),
     })
-    for rows, width, k in ((256, 15744, SELECT_K), (4, 100_000, T.MAX_K),
+    for rows, width, k in ((256, 15744, SELECT_K), (4, 100_000, 2048),
                            (2, L2_ROWS, INT4_POOL_1M), (3, 17, 5),
                            (1, 1, 1), (3, 40_000, 5_000),
-                           (2, 30_000, 30_000), (2, 200_000, 20_000)):
+                           (2, 30_000, 30_000), (2, 200_000, 20_000),
+                           # the warp path's rows and one block's; row
+                           # counts no multiple of 8 (the transposed
+                           # views' row groups); k at the block path's
+                           # limit and one past it (the wide path)
+                           (5, 32, 7), (6, 128, 128), (9, 2048, 100),
+                           (13, 15744, SELECT_K), (11, 3000, 512),
+                           (2, 20_000, T.BLOCK_K_MAX),
+                           (2, 20_000, T.BLOCK_K_MAX + 1)):
         x = tie_heavy(rows, width, rows + k).to(device)
         checked[f"tie-heavy [{rows}, {width}] f32 k={k}"] = (x, k)
         checked[f"tie-heavy [{rows}, {width}] f32 (transposed) k={k}"] = (
@@ -639,9 +752,15 @@ def select_phase(device: torch.device) -> dict:
                          dtype=torch.int32)
     checked["int32 [8, 40000] k=300"] = (ints, 300)
     for name, (x, k) in checked.items():
+        check_plan(name, x, k)
         check_select(name, x, k)
     log(f"kernel select_topk equals its plain version bit for bit (ids and "
-        f"value bits) on {len(checked)} inputs: {', '.join(checked)}")
+        f"value bits) on {len(checked)} inputs, and its planner the "
+        f"port's twin (topk.plan): {', '.join(checked)}")
+    check_select_in_graph(winners, fresh_top[0])
+    split = host_device_split(Ring(fresh_top), SELECT_RERANK_K)
+    log(f"select_topk re-rank [256, 128] f32 k=16, host and device apart "
+        f"on {card_name(device)}: " + json.dumps(split))
 
     def library(x, k):  # another tie order: the yardstick only
         return torch.topk(x, k, dim=-1, sorted=True)
@@ -1083,7 +1202,13 @@ def bench_phase(device: torch.device, **env: str) -> dict:
         check(res.get("e2e_gateway_fast_path_requests", 0) > 0,
               "bench: the gateway served nothing on its fast path: "
               f"{res.get('e2e_gateway_note')}")
-    return {"launches": res["kernel_launches"], "line": res}
+        selects = res["launches_by_wrapper"]["select_topk"]
+        check(all(selects["captured"][g] >= want[g] for g in want),
+              f"bench: the selection kernel not in every search of the "
+              f"timed graphs: {selects['captured']} (want at least {want})")
+    selects = res["launches_by_wrapper"]["select_topk"]
+    return {"launches": res["kernel_launches"], "line": res,
+            "select_launches": selects["per_dispatch"] + selects["e2e"]}
 
 
 # ------------------------------------------------------- ladder bench
@@ -1392,6 +1517,7 @@ def soak_phase(device: torch.device, *args: str) -> dict:
     log(f"soak RSS (not gated): start {res['rss_start_mb']} MB, peak "
         f"{res['rss_peak_mb']} MB, end {res['rss_end_mb']} MB")
     return {"line": res, "launches": res["kernel_launches"]["bucket_scores"],
+            "select_launches": res["kernel_launches"]["select_topk"],
             "seconds": seconds}
 
 
@@ -3813,13 +3939,16 @@ def run_phases() -> int:
         launches[name] += exact["launches"][name]
     sweeps["onepass_sweep/shipped"]["launches"] += tiles["launches"]
     # the selection kernel on every in-process path that runs it (not
-    # the phases that hold kernels to their plain versions) and in the
-    # ladder bench's process; bench_torch.py, the soak and the cluster's
-    # servers count kernel 1 only
+    # the phases that hold kernels to their plain versions: the bench's
+    # and the soak's children report their own) and in the bench's, the
+    # ladder bench's and the soak's processes; the cluster's servers are
+    # not counted
     launches["select_topk"] = sum(
         count for name, count in selects.items()
         if name not in ("kernel", "select", "quant kernels"))
-    launches["select_topk"] += ladder_bench["launches"]["select_topk"]
+    launches["select_topk"] += (ladder_bench["launches"]["select_topk"]
+                                + bench["select_launches"]
+                                + soak["select_launches"])
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
     entries = [{"name": name, "route": "cuda", "source": source,

@@ -30,7 +30,8 @@ Differences from the reference:
   (``/v1/query/vsearch``, fresh queries of the same generator) are held
   to an exact host oracle: ``post_soak_recall_at_10``.
 - The line adds ``device``, ``post_soak_recall_at_10`` and
-  ``kernel_launches`` (kernel 1's launches while the clients ran).
+  ``kernel_launches`` (kernel 1's and the selection kernel's launches
+  while the clients ran, per wrapper).
 - ``main`` returns 1 when a client exits nonzero or prints no line, when
   ``nodes_final`` differs from ``ingested_docs`` (an acknowledged write
   is missing), or when the read-back recall is below
@@ -257,6 +258,7 @@ def soak(args: argparse.Namespace, engine, part, rng, port: int) -> dict:
     """The clients against the gateway at ``port`` for ``args.seconds``,
     RSS sampled every 5 s, then the settle and the read-back: the line."""
     from ..ops import fused_topk as F
+    from ..ops import topk as T
 
     # warm every padded batch-size bucket the soak can hit
     for b in (1, 8):
@@ -265,6 +267,7 @@ def soak(args: argparse.Namespace, engine, part, rng, port: int) -> dict:
         )
     rss_start = rss_mb(os.getpid())
     launched = F.bucket_scores.launches
+    selected = T.select_topk.launches
     procs = []
     try:
         procs.append(subprocess.Popen(
@@ -290,6 +293,7 @@ def soak(args: argparse.Namespace, engine, part, rng, port: int) -> dict:
                 proc.kill()
                 proc.wait()
     launched = F.bucket_scores.launches - launched
+    selected = T.select_topk.launches - selected
     # settle + one idle GC tick, then final RSS
     time.sleep(6)
     rss_end = rss_mb(os.getpid())
@@ -303,7 +307,8 @@ def soak(args: argparse.Namespace, engine, part, rng, port: int) -> dict:
         "device": (torch.cuda.get_device_name(part.device)
                    if part.device.type == "cuda" else "cpu"),
         "post_soak_recall_at_10": readback(port, part, rng, args.d, args.k),
-        "kernel_launches": {"bucket_scores": launched},
+        "kernel_launches": {"bucket_scores": launched,
+                            "select_topk": selected},
     }
 
 

@@ -193,6 +193,11 @@ def load() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_void_p,
         ]
+        lib.hx_select_topk_plan.restype = ctypes.c_int
+        lib.hx_select_topk_plan.argtypes = [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_longlong),
+        ]
         _LIB = lib
         return lib
 
@@ -209,6 +214,12 @@ def count_launch(wrapper, device) -> None:
 
     with torch.cuda.device(device):
         capturing = torch.cuda.is_current_stream_capturing()
+    note_launch(wrapper, capturing)
+
+
+def note_launch(wrapper, capturing: bool) -> None:
+    """One more launch of ``wrapper``'s kernel, or one more captured node
+    where the stream it launched on was ``capturing`` a CUDA graph."""
     with _LAUNCH_LOCK:  # searches may run on several threads
         if capturing:
             wrapper.captured += 1

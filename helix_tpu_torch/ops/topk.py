@@ -24,28 +24,41 @@ through their exact f32 value; int32 rows by value.
 of the port takes (``distance._top_k``, at the reference's
 ``approx_max_k`` and ``lax.top_k`` sites alike).  On a CUDA tensor
 inside :func:`supports_select` (f32, bf16 or int32 rows narrower than
-2^31: every shape of the port) it launches ``csrc/select_topk.cu``: for
-``k <= MAX_K`` a radix select per slice of a row in one block's shared
-memory, an ordered compaction that keeps the lower columns among equal
-keys, and a bitonic sort; past ``MAX_K`` the same select over the whole
-row in device memory, then sorted runs merged.  It counts the launch in
-``select_topk.launches`` (``.captured`` on a stream capturing a CUDA
-graph); any other CUDA call raises.  On a CPU tensor it runs
-:func:`select_topk_reference`, the plain version: a stable descending
-sort of the keys.  Both return the same values (the input's dtype and
-bits) and int64 positions.
+2^31: every shape of the port) it launches ``csrc/select_topk.cu`` on
+the path :func:`plan` picks from the shape and strides: rows of at most
+``WARP_MAX`` columns one warp each, sorted in registers; ``k <=
+BLOCK_K_MAX`` a threshold filter per chunk of a row (8 adjacent rows a
+block for a transposed view) into a buffer in shared memory, radix
+selects on that buffer alone, and a second launch over the chunks'
+survivors where a row takes more than one chunk; past ``BLOCK_K_MAX``
+the wide path (radix passes over the whole row, sorted runs merged).
+It counts the launch in ``select_topk.launches`` (``.captured`` on a
+stream capturing a CUDA graph); any other CUDA call raises.  On a CPU
+tensor it runs :func:`select_topk_reference`, the plain version: a
+stable descending sort of the keys.  Both return the same values (the
+input's dtype and bits) and int64 positions.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from .. import kernels
 
-MAX_K = 2048          # csrc/select_topk.cu: the one-block select's largest k
-SLICE = 16384         # csrc/select_topk.cu: columns per block and pass
+# csrc/select_topk.cu's planner constants (plan_of)
+THREADS = 512         # a block path block's threads
+BV = 4                # keys a thread loads per tile
+WARP_MAX = 512        # the warp path's widest row
+MAX_CAP = 16384       # words of one block's buffers
+BLOCK_K_MAX = MAX_CAP - THREADS * BV   # 14,336: past it the wide path
+SMS = 132             # an H100 SXM's SMs: the planner's target
+SLICE = 16384         # the wide path's columns per block
+CAPTURED = 1 << 30    # hx_select_topk's code for a launch into a capture
+PATHS = ("warp", "block", "wide")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _INT32_MAX = 0x7FFFFFFF
 
@@ -83,26 +96,93 @@ def select_topk_reference(x: torch.Tensor,
     return torch.gather(x, -1, idx), idx
 
 
-def scratch_bytes(rows: int, width: int, k: int) -> int:
-    """Scratch bytes that a selection of ``k`` of ``width`` columns over
-    ``rows`` rows needs (csrc/select_topk.cu: scratch_of).  For ``k <=
-    MAX_K``: a key and a column (4 bytes each) for every candidate of the
-    first two passes; past it: two regions of ``rows * k`` packed pairs,
+class Plan(NamedTuple):
+    """How ``csrc/select_topk.cu`` runs one shape: ``path`` (``PATHS``);
+    ``param``, the warp path's words per lane (else 0); for the block
+    path one ``(width, chunk, chunks, log2 of the buffer)`` per stage; the
+    scratch bytes."""
+
+    path: str
+    param: int
+    stages: tuple
+    scratch: int
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _log_cap(k: int) -> int:
+    """log2 of a block's buffer: room for k words and one tile."""
+    return (k + THREADS * BV - 1).bit_length()
+
+
+def _chunk(width: int, rows: int, k: int) -> tuple[int, int]:
+    """A block path stage's (chunk, chunks) over ``width`` columns: one
+    chunk up to 32k columns, else about 4 x SMS blocks over the rows,
+    each chunk within [max(16384, 16k), 131072], rounded up to a
+    tile."""
+    if width <= 32 * k:
+        return width, 1
+    want = _ceil_div(4 * SMS, rows)
+    lo = max(16384, 16 * k)
+    hi = max(lo, 131072)
+    tile = THREADS * BV   # chunks start on a tile
+    c = _ceil_div(min(max(_ceil_div(width, want), lo), hi), tile) * tile
+    if c >= width:
+        return width, 1
+    return c, _ceil_div(width, c)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(rows: int, width: int, k: int) -> Plan:
+    """The kernel's plan for ``k`` of ``width`` columns over ``rows``
+    rows (csrc/select_topk.cu: plan_of, which the card checks against
+    this twin).  The block path's scratch holds the words of its first
+    two intermediate stages (later stages alternate between those
+    regions); the wide path's two regions of ``rows * k`` packed pairs,
     8 bytes per chunk of ``SLICE`` columns, and 256 bins and 4 ints of
     state per row."""
-    def slices(w: int) -> int:
-        return -(-w // SLICE)
-
-    if k > MAX_K:
-        return rows * (16 * k + 8 * slices(width) + 4 * 260)
-    need, w, passes = 0, width, 0
-    while slices(w) > 1:
-        s = slices(w)
-        w = (s - 1) * k + min(k, w - (s - 1) * SLICE)
-        if passes < 2:
+    if not (rows >= 1 and 1 <= k <= width < 1 << 31):
+        raise ValueError(f"select_topk: no plan for k={k} of {width} "
+                         f"columns over {rows} rows")
+    if k > BLOCK_K_MAX:
+        return Plan("wide", 0, (), rows * (
+            16 * k + 8 * _ceil_div(width, SLICE) + 4 * 260))
+    if width <= WARP_MAX:
+        return Plan("warp", 1 << max(0, (width - 1) // 32).bit_length(),
+                    (), 0)
+    stages, w, need = [], width, 0
+    while True:
+        chunk, chunks = _chunk(w, rows, k)
+        stages.append((w, chunk, chunks, _log_cap(k)))
+        if chunks == 1:
+            break
+        w = chunks * k
+        if len(stages) <= 2:
             need += w
-        passes += 1
-    return 8 * rows * need
+    return Plan("block", 0, tuple(stages), 8 * rows * need)
+
+
+def scratch_bytes(rows: int, width: int, k: int) -> int:
+    """Scratch bytes that a selection of ``k`` of ``width`` columns over
+    ``rows`` rows needs (:func:`plan`)."""
+    return plan(rows, width, k).scratch
+
+
+_ENTRY = None   # the C entry hx_select_topk, bound at the first launch
+
+
+@functools.lru_cache(maxsize=4096)
+def _scratch_for(rows: int, width: int, k: int, dtype: torch.dtype) -> int:
+    """The wrapper's per-shape plan: the scratch bytes, after the gate."""
+    if not supports_select(width, k, dtype):
+        raise ValueError(
+            f"select_topk: the kernel does not take k={k} of {width} "
+            f"columns of {dtype} (f32, bf16 or int32; 1 <= k <= width "
+            "< 2^31)"
+        )
+    return plan(rows, width, k).scratch if rows else 0
 
 
 def select_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -114,48 +194,57 @@ def select_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
     A CPU tensor runs :func:`select_topk_reference`.  A CUDA tensor
     launches ``csrc/select_topk.cu`` on the current stream, with outputs
-    and scratch from ``torch.empty`` (safe under CUDA-graph capture and
-    from several threads), or raises outside :func:`supports_select`."""
-    if x.dim() == 0:
-        raise ValueError("select_topk needs at least one axis")
+    and scratch from the caching allocator (``Tensor.new_empty``: safe
+    under CUDA-graph capture and from several threads), or raises outside
+    :func:`supports_select`.  The host's part is one plan lookup (cached
+    per shape and dtype), the allocations, a device guard only where
+    ``x`` is not on the current device, one capture check and one
+    ``ctypes`` call."""
     if x.dim() != 2:
+        if x.dim() == 0:
+            raise ValueError("select_topk needs at least one axis")
         lead = x.shape[:-1]
         vals, ids = select_topk(x.reshape(math.prod(lead), x.shape[-1]), k)
         return (vals.reshape(*lead, vals.shape[-1]),
                 ids.reshape(*lead, ids.shape[-1]))
     if k < 0:
         raise ValueError(f"select_topk: k={k} is negative")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return select_topk_reference(x, k)
     rows, width = x.shape
     k = min(k, width)
-    if k > 0 and not supports_select(width, k, x.dtype):
-        raise ValueError(
-            f"select_topk: the kernel does not take k={k} of {width} "
-            f"columns of {x.dtype} (f32, bf16 or int32; 1 <= k <= width "
-            "< 2^31)"
-        )
-    if x.device.type != "cuda":
+    nbytes = _scratch_for(rows, width, k, x.dtype) if k else 0
+    if not x.is_cuda:
         raise ValueError(f"select_topk runs on CPU or CUDA, got {x.device}")
-    vals = torch.empty((rows, k), dtype=x.dtype, device=x.device)
-    ids = torch.empty((rows, k), dtype=torch.int64, device=x.device)
+    vals = x.new_empty(rows, k)
+    ids = x.new_empty(rows, k, dtype=torch.int64)
     if rows == 0 or k == 0:
         return vals, ids
-    nbytes = scratch_bytes(rows, width, k)
-    # one pass (the fused tail, the re-rank) needs none
-    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-               if nbytes else None)
-    lib = kernels.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hx_select_topk(
-            x.data_ptr(), _DTYPE_CODES[x.dtype], rows, width,
-            x.stride(0), x.stride(1), k, vals.data_ptr(), ids.data_ptr(),
-            scratch.data_ptr() if nbytes else None, nbytes, stream,
-        )
-    kernels.check_launch("select_topk", rc)
-    kernels.count_launch(select_topk, x.device)
+    scratch = x.new_empty(nbytes, dtype=torch.uint8) if nbytes else None
+    dev = x.get_device()
+    if dev != torch._C._cuda_getDevice():
+        with torch.cuda.device(dev):
+            _launch(x, rows, width, k, vals, ids, scratch, nbytes, dev)
+    else:
+        _launch(x, rows, width, k, vals, ids, scratch, nbytes, dev)
     return vals, ids
+
+
+def _launch(x, rows, width, k, vals, ids, scratch, nbytes, dev) -> None:
+    """One call of the C entry on the current device ``dev``, counted as
+    a launch or, where the stream captures a CUDA graph (the entry says
+    so), a captured node."""
+    global _ENTRY
+    if _ENTRY is None:
+        _ENTRY = kernels.load().hx_select_topk
+    s0, s1 = x.stride()
+    rc = _ENTRY(x.data_ptr(), _DTYPE_CODES[x.dtype], rows, width, s0, s1, k,
+                vals.data_ptr(), ids.data_ptr(),
+                scratch.data_ptr() if nbytes else None, nbytes,
+                torch._C._cuda_getCurrentRawStream(dev))
+    if rc and rc != CAPTURED:
+        kernels.check_launch("select_topk", rc)
+    kernels.note_launch(select_topk, rc == CAPTURED)
 
 
 select_topk.launches = 0

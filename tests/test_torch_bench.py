@@ -160,7 +160,8 @@ def test_keys_are_bench_py_keys(runs):
                "e2e_tunnel_qps": "e2e_qps"}
     left_out = {"baseline_attempt"}
     added = {"card", "kernel_launches", "kernel_launches_by_window",
-             "graph_kernel_launches", "graph_peak_bytes"}
+             "graph_kernel_launches", "launches_by_wrapper",
+             "graph_peak_bytes"}
     want = {renamed.get(key, key) for key in ref} - left_out | added
     assert set(port) == want
     assert port["backend"] == "cpu" and port["card"] is None
@@ -168,6 +169,10 @@ def test_keys_are_bench_py_keys(runs):
     assert port["kernel_launches"] == 0  # the CPU runs the plain path
     assert port["kernel_launches_by_window"] == {"per_dispatch": 0, "e2e": 0}
     assert port["graph_kernel_launches"] is None  # no graphs off the card
+    # kernel 1 and the selection kernel side by side, none on the CPU
+    assert port["launches_by_wrapper"] == {
+        name: {"per_dispatch": 0, "e2e": 0, "captured": None}
+        for name in ("bucket_scores", "select_topk")}
     assert port["traversal_2hop_device_ms"] > 0
     assert port["hybrid_seed_expand_device_ms"] > 0
 

@@ -210,9 +210,9 @@ def test_gate():
     for dtype in (torch.float32, torch.bfloat16, torch.int32):
         assert T.supports_select(1, 1, dtype)
         assert T.supports_select(15744, 128, dtype)
-        assert T.supports_select(1_000_448, T.MAX_K, dtype)
+        assert T.supports_select(1_000_448, T.BLOCK_K_MAX, dtype)
         assert T.supports_select((1 << 31) - 1, 977, dtype)
-        assert T.supports_select(1 << 20, T.MAX_K + 1, dtype)
+        assert T.supports_select(1 << 20, T.BLOCK_K_MAX + 1, dtype)
         assert T.supports_select(1 << 20, 65536, dtype)
         assert T.supports_select(156_288, 9_765, dtype)
         assert T.supports_select(3000, 3000, dtype)
@@ -224,19 +224,20 @@ def test_gate():
 
 
 def test_scratch_holds_the_first_two_passes():
-    assert T.scratch_bytes(256, 15744, 128) == 0        # one pass
-    assert T.scratch_bytes(3, T.SLICE, T.MAX_K) == 0
-    # 62 slices of 128, then one: [256, 1,000,448] at k=128, a 4-byte key
-    # and column per candidate
-    assert T.scratch_bytes(256, 1_000_448, 128) == 256 * 8 * (61 * 128
-                                                              + 128)
-    # 62 slices of 2048 -> 125,952, 8 slices -> 16,384, then one
-    assert T.scratch_bytes(2, 1_000_448, 2048) == 2 * 8 * (125_952
-                                                           + 16_384)
-    # past the one-block k: two regions of k packed pairs, 8 bytes per
+    # one pass (the fused tail's winners, the re-rank, the 10M int4 pool)
+    # needs none
+    assert T.scratch_bytes(256, 15744, 128) == 0
+    assert T.scratch_bytes(256, 128, 16) == 0
+    assert T.scratch_bytes(256, 156_288, 9_765) == 0
+    # [256, 1,000,448] at k=128: 8 chunks of 131,072, 128 words of 8
+    # bytes each a row, then one
+    assert T.scratch_bytes(256, 1_000_448, 128) == 256 * 8 * (8 * 128)
+    # 31 chunks of 32,768 at k=2048 -> 63,488, then one
+    assert T.scratch_bytes(2, 1_000_448, 2048) == 2 * 8 * 63_488
+    # past the block path's k: two regions of k packed pairs, 8 bytes per
     # chunk of SLICE columns, 256 bins and 4 ints of state, per row
-    assert T.scratch_bytes(256, 156_288, 9_765) == 256 * (
-        16 * 9_765 + 8 * 10 + 4 * 260)
+    assert T.scratch_bytes(256, 156_288, T.BLOCK_K_MAX + 1) == 256 * (
+        16 * (T.BLOCK_K_MAX + 1) + 8 * 10 + 4 * 260)
     assert T.scratch_bytes(1, 1_000_000, 65_536) == (16 * 65_536
                                                      + 8 * 62 + 4 * 260)
 
@@ -274,7 +275,13 @@ def test_kernel_matches_its_plain_version_on_the_card():
                     "on the card")
     cases = [(256, 15744, 128), (256, 128, 16), (4, 100_000, 2048),
              (2, 1_000_448, 977), (3, 17, 5), (1, 1, 1), (3, 40_000, 5000),
-             (2, 30_000, 30_000), (2, 200_000, 20_000), (4, 156_288, 9765)]
+             (2, 30_000, 30_000), (2, 200_000, 20_000), (4, 156_288, 9765),
+             # narrow rows (the warp path, then one block), transposed
+             # views of rows no multiple of 8, k at the block path's
+             # limit and one past it
+             (5, 1, 1), (9, 32, 7), (6, 128, 128), (6, 2048, 100),
+             (13, 15744, 128), (11, 3000, 512),
+             (2, 20_000, T.BLOCK_K_MAX), (2, 20_000, T.BLOCK_K_MAX + 1)]
     for rows, width, k in cases:
         x = torch.from_numpy(tie_heavy(rows, width, rows + k, nan=True))
         for view in (x, x.T.contiguous().T, x.to(torch.bfloat16)):

@@ -82,7 +82,7 @@ def test_main_soaks_a_real_gateway_on_the_cpu(capsys):
     assert np.isfinite([line["p50_ms"], line["p99_ms"]]).all()
     assert line["post_soak_recall_at_10"] >= soak.RECALL_FLOOR
     assert line["device"] == "cpu"
-    assert line["kernel_launches"] == {"bucket_scores": 0}
+    assert line["kernel_launches"] == {"bucket_scores": 0, "select_topk": 0}
 
 
 def test_a_failed_client_fails_the_soak(capsys, monkeypatch):
