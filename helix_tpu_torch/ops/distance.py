@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from . import topk as _topk
 
 
@@ -566,81 +567,98 @@ def search_packed_async(
     """Pipelined variant of :func:`search_packed`: dispatches the device
     work and returns a ``finalize()`` closure that waits for the D2H
     copies and runs the host-side cleanup, so a serving loop can issue
-    the next batch before finalizing the previous one."""
+    the next batch before finalizing the previous one.
+
+    It records the spans of :mod:`..tracing`: ``engine.search`` over the
+    dispatch and its child ``engine.live_count``; on the device path also
+    the children ``engine.h2d``, ``kernel.enqueue`` (host time to launch
+    the search's kernels) and ``engine.mask_copy``, and, in
+    ``finalize()``, ``engine.d2h_wait`` under the dispatch's
+    ``engine.search``."""
     if matrix.n == 0:
         b = queries.shape[0]
         empty = (np.zeros((b, 0), np.float32), np.zeros((b, 0), np.int64))
         return lambda: empty
-    qs = matrix.prepare_queries(queries)
-    n_live = (
-        int(valid_mask[: matrix.n].sum()) if valid_mask is not None else matrix.n
-    )
-    k_eff = min(k, n_live)
-    if k_eff == 0:
-        b = queries.shape[0]
-        empty = (np.zeros((b, 0), np.float32), np.zeros((b, 0), np.int64))
-        return lambda: empty
-
-    if use_device is None:
-        use_device = matrix.n >= 4096
-
-    if not use_device:
-        data = matrix.data[: matrix.n]
-        if matrix.metric == "cosine":
-            dists = 1.0 - qs @ data.T
-        else:
-            dists = (
-                matrix.sq_norms[: matrix.n][None, :]
-                - 2.0 * (qs @ data.T)
-                + np.sum(qs * qs, axis=1, keepdims=True)
+    with tracing.span("engine.search") as search:
+        qs = matrix.prepare_queries(queries)
+        with tracing.span("engine.live_count"):
+            n_live = (
+                int(valid_mask[: matrix.n].sum())
+                if valid_mask is not None else matrix.n
             )
-        if valid_mask is not None:
-            dists = np.where(valid_mask[: matrix.n][None, :], dists, np.inf)
-        part = np.argpartition(dists, k_eff - 1, axis=1)[:, :k_eff]
-        part_d = np.take_along_axis(dists, part, axis=1)
-        order = np.argsort(part_d, axis=1, kind="stable")
-        idx = np.take_along_axis(part, order, axis=1)
-        host = (
-            np.take_along_axis(dists, idx, axis=1).astype(np.float32),
-            idx.astype(np.int64),
-        )
-        return lambda: host
+        k_eff = min(k, n_live)
+        if k_eff == 0:
+            b = queries.shape[0]
+            empty = (np.zeros((b, 0), np.float32), np.zeros((b, 0), np.int64))
+            return lambda: empty
 
-    # Device path: one H2D (queries), the search, one D2H (top-k).
-    # Tombstones widen k by the dead count; finalize compacts them out.
-    dead = 0 if valid_mask is None else int(matrix.n - n_live)
-    k_query = min(matrix.n, k_eff + dead)
-    # Bucket the shapes as the reference does (batch to a power of two
-    # >= 8, k to a power of two >= 16), so both packages search the same
-    # padded problem and return the same candidates.
-    b_real = qs.shape[0]
-    b_pad = max(8, 1 << (b_real - 1).bit_length())
-    if b_pad != b_real:
-        qs = np.concatenate(
-            [qs, np.zeros((b_pad - b_real, qs.shape[1]), qs.dtype)]
-        )
-    k_bucket = min(matrix.n, max(16, 1 << (int(k_query) - 1).bit_length()))
-    if k_bucket < k_query:  # n itself not a power of two
-        k_bucket = int(k_query)
-    xs16, sq = matrix.device_arrays()
-    dists_dev, idx_dev = resident_topk_auto(
-        xs16,
-        matrix.data_device(),
-        torch.from_numpy(qs).to(matrix.device),
-        matrix.n,
-        sq,
-        k=int(k_bucket),
-        metric=matrix.metric,
-        rerank=max(rerank, 1),
-    )
-    (dists_host, idx_host), copied = _copy_to_host_async(dists_dev, idx_dev)
-    # Snapshot the mask now (the store can mutate between dispatch and
-    # finalize).
-    mask_snapshot = None if valid_mask is None else valid_mask.copy()
+        if use_device is None:
+            use_device = matrix.n >= 4096
+
+        if not use_device:
+            data = matrix.data[: matrix.n]
+            if matrix.metric == "cosine":
+                dists = 1.0 - qs @ data.T
+            else:
+                dists = (
+                    matrix.sq_norms[: matrix.n][None, :]
+                    - 2.0 * (qs @ data.T)
+                    + np.sum(qs * qs, axis=1, keepdims=True)
+                )
+            if valid_mask is not None:
+                dists = np.where(valid_mask[: matrix.n][None, :], dists, np.inf)
+            part = np.argpartition(dists, k_eff - 1, axis=1)[:, :k_eff]
+            part_d = np.take_along_axis(dists, part, axis=1)
+            order = np.argsort(part_d, axis=1, kind="stable")
+            idx = np.take_along_axis(part, order, axis=1)
+            host = (
+                np.take_along_axis(dists, idx, axis=1).astype(np.float32),
+                idx.astype(np.int64),
+            )
+            return lambda: host
+
+        # Device path: one H2D (queries), the search, one D2H (top-k).
+        # Tombstones widen k by the dead count; finalize compacts them out.
+        dead = 0 if valid_mask is None else int(matrix.n - n_live)
+        k_query = min(matrix.n, k_eff + dead)
+        # Bucket the shapes as the reference does (batch to a power of two
+        # >= 8, k to a power of two >= 16), so both packages search the
+        # same padded problem and return the same candidates.
+        b_real = qs.shape[0]
+        b_pad = max(8, 1 << (b_real - 1).bit_length())
+        if b_pad != b_real:
+            qs = np.concatenate(
+                [qs, np.zeros((b_pad - b_real, qs.shape[1]), qs.dtype)]
+            )
+        k_bucket = min(matrix.n, max(16, 1 << (int(k_query) - 1).bit_length()))
+        if k_bucket < k_query:  # n itself not a power of two
+            k_bucket = int(k_query)
+        xs16, sq = matrix.device_arrays()
+        xs32 = matrix.data_device()
+        with tracing.span("engine.h2d"):
+            qs_dev = torch.from_numpy(qs).to(matrix.device)
+        with tracing.span("kernel.enqueue"):
+            dists_dev, idx_dev = resident_topk_auto(
+                xs16,
+                xs32,
+                qs_dev,
+                matrix.n,
+                sq,
+                k=int(k_bucket),
+                metric=matrix.metric,
+                rerank=max(rerank, 1),
+            )
+        (dists_host, idx_host), copied = _copy_to_host_async(dists_dev, idx_dev)
+        # Snapshot the mask now (the store can mutate between dispatch and
+        # finalize).
+        with tracing.span("engine.mask_copy"):
+            mask_snapshot = None if valid_mask is None else valid_mask.copy()
+    search_id = search.id
 
     def finalize() -> tuple[np.ndarray, np.ndarray]:
-        if copied is not None:
-            copied.synchronize()
+        with tracing.span("engine.d2h_wait", parent=search_id):
+            if copied is not None:
+                copied.synchronize()
         dists = dists_host.numpy().astype(np.float32)[:b_real, :k_query]
         idx = idx_host.numpy().astype(np.int64)[:b_real, :k_query]
         if mask_snapshot is not None and dead:

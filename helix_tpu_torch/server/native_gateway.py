@@ -39,6 +39,15 @@ Differs from the reference in:
 
 - ``NativeGateway.__init__``: takes ``device`` (default ``"cuda"``) for
   the ``Engine`` it builds.
+- ``NativeGateway._vbatch_loop``: records the span ``server.vbatch``
+  (:mod:`..tracing`) from a batch's arrival to its last group's hand-off,
+  the parent of its groups' ``engine.search``, and counts its queries in
+  ``server.vbatch_queries``; each hand-off carries its time and the
+  span's id.
+- ``NativeGateway._vbatch_finalize_loop``: records ``server.handoff_wait``
+  (a group's time in the hand-off queue) and ``server.respond`` (the
+  C++ formatting of its responses), both under the group's
+  ``server.vbatch``.
 """
 
 from __future__ import annotations
@@ -570,6 +579,8 @@ class NativeGateway:
         import queue as _queue
         import time
 
+        from .. import tracing
+
         lib, h = self._lib, self._handle
         cap = self.VBATCH_CAP
         max_dim = self.MAX_FAST_DIM
@@ -631,14 +642,16 @@ class NativeGateway:
                 # and the idle-gated GC sweep never ran again.
                 self._track(n)
                 try:
-                    for item in self._dispatch_vbatch(
-                        reqids[:n].copy(), queries[:n], ks[:n].copy(),
-                        route_ids[:n].copy(),
-                        tenants[: n * self.TENANT_CAP].reshape(
-                            n, self.TENANT_CAP
-                        ),
-                    ):
-                        pending.put(item)
+                    with tracing.span("server.vbatch") as vbatch:
+                        tracing.count("server.vbatch_queries", n)
+                        for item in self._dispatch_vbatch(
+                            reqids[:n].copy(), queries[:n], ks[:n].copy(),
+                            route_ids[:n].copy(),
+                            tenants[: n * self.TENANT_CAP].reshape(
+                                n, self.TENANT_CAP
+                            ),
+                        ):
+                            pending.put(item + (time.time_ns(), vbatch.id))
                 except Exception:
                     # the fast path must never die: fail THIS batch's
                     # requests loudly (already-answered reqids no-op)
@@ -790,15 +803,20 @@ class NativeGateway:
     def _vbatch_finalize_loop(self, pending) -> None:
         """Finalize stage: force each dispatched batch's D2H, format and
         enqueue the responses via C++."""
+        from .. import tracing
+
         lib, h = self._lib, self._handle
         u64p = ctypes.POINTER(ctypes.c_uint64)
         i32p = ctypes.POINTER(ctypes.c_int32)
         f64p = ctypes.POINTER(ctypes.c_double)
         while True:
             item = pending.get()
+            got_ns = time.time_ns()
             if item is None:
                 return
-            batch_reqids, rid, batch_ks, batch_q, finalize, tenant = item
+            (batch_reqids, rid, batch_ks, batch_q, finalize, tenant,
+             put_ns, vbatch_id) = item
+            tracing.record("server.handoff_wait", put_ns, got_ns, vbatch_id)
             try:
                 ids, dists = finalize()
             except Exception:
@@ -819,15 +837,16 @@ class NativeGateway:
                 out_ids[:, :got] = ids
                 out_dists[:, :got] = dists
             batch_rids = np.full(len(batch_reqids), rid, np.int32)
-            lib.hxgw_respond_vbatch(
-                h,
-                batch_reqids.ctypes.data_as(u64p),
-                batch_rids.ctypes.data_as(i32p),
-                len(batch_reqids), out_ids.shape[1],
-                out_ids.ctypes.data_as(u64p),
-                out_dists.ctypes.data_as(f64p),
-                counts.ctypes.data_as(i32p),
-            )
+            with tracing.span("server.respond", parent=vbatch_id):
+                lib.hxgw_respond_vbatch(
+                    h,
+                    batch_reqids.ctypes.data_as(u64p),
+                    batch_rids.ctypes.data_as(i32p),
+                    len(batch_reqids), out_ids.shape[1],
+                    out_ids.ctypes.data_as(u64p),
+                    out_dists.ctypes.data_as(f64p),
+                    counts.ctypes.data_as(i32p),
+                )
             self._track(-len(batch_reqids))
 
     def _respond_slow_fallback(
