@@ -31,6 +31,8 @@ Differs from the reference in:
 - ``Partition.__init__``: takes ``device``.
 - ``Partition.add``: builds the matrix on the partition's device.
 - ``Partition.add_bulk``: builds the matrix on the partition's device.
+- ``Partition.search_many_async``: passes the exact search the live
+  count it keeps (``n_live``), so no dispatch counts the mask.
 - ``Partition._search_quant``: counts the mesh's devices with
   ``parallel.device_count``.
 - ``Partition._search_quant_sharded``: the mesh over the partition's
@@ -280,7 +282,8 @@ class Partition:
             id_table = self.id_table  # stable view; see exact tier below
             return lambda: self._map_hits(dists, positions, id_table)
         inner = search_packed_async(
-            self.matrix, queries, k, valid_mask=self.live_mask
+            self.matrix, queries, k, valid_mask=self.live_mask,
+            n_live=self._n_live,
         )
         # dispatch-time id-table snapshot: the view is already stable
         # (_ids is append-only; _ensure_capacity reallocates instead of

@@ -529,13 +529,14 @@ def search_packed(
     *,
     use_device: bool | None = None,
     rerank: int = 8,
+    n_live: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Exact top-k over a packed matrix.  Returns ``(dists [B, k'],
     positions [B, k'])`` with ``k' <= k`` columns, distances ascending;
     invalid rows excluded.  Small partitions run host-side."""
     return search_packed_async(
         matrix, queries, k, valid_mask,
-        use_device=use_device, rerank=rerank,
+        use_device=use_device, rerank=rerank, n_live=n_live,
     )()
 
 
@@ -563,18 +564,26 @@ def search_packed_async(
     *,
     use_device: bool | None = None,
     rerank: int = 8,
+    n_live: int | None = None,
 ):
     """Pipelined variant of :func:`search_packed`: dispatches the device
     work and returns a ``finalize()`` closure that waits for the D2H
     copies and runs the host-side cleanup, so a serving loop can issue
     the next batch before finalizing the previous one.
 
+    ``n_live`` is the number of live rows in ``valid_mask[: matrix.n]``
+    where the caller keeps it (``Partition._n_live``); when it is None
+    the mask is counted, an O(n) pass.  The device path snapshots the
+    mask for ``finalize()`` only when some row is dead: with none dead
+    ``finalize()`` has nothing to compact.
+
     It records the spans of :mod:`..tracing`: ``engine.search`` over the
     dispatch and its child ``engine.live_count``; on the device path also
     the children ``engine.h2d``, ``kernel.enqueue`` (host time to launch
     the search's kernels) and ``engine.mask_copy``, and, in
     ``finalize()``, ``engine.d2h_wait`` under the dispatch's
-    ``engine.search``."""
+    ``engine.search``.  The counter ``engine.mask_snapshots`` counts the
+    dispatches that copy the mask."""
     if matrix.n == 0:
         b = queries.shape[0]
         empty = (np.zeros((b, 0), np.float32), np.zeros((b, 0), np.int64))
@@ -582,10 +591,11 @@ def search_packed_async(
     with tracing.span("engine.search") as search:
         qs = matrix.prepare_queries(queries)
         with tracing.span("engine.live_count"):
-            n_live = (
-                int(valid_mask[: matrix.n].sum())
-                if valid_mask is not None else matrix.n
-            )
+            if n_live is None:
+                n_live = (
+                    int(valid_mask[: matrix.n].sum())
+                    if valid_mask is not None else matrix.n
+                )
         k_eff = min(k, n_live)
         if k_eff == 0:
             b = queries.shape[0]
@@ -650,9 +660,12 @@ def search_packed_async(
             )
         (dists_host, idx_host), copied = _copy_to_host_async(dists_dev, idx_dev)
         # Snapshot the mask now (the store can mutate between dispatch and
-        # finalize).
+        # finalize); with no dead row finalize compacts nothing.
         with tracing.span("engine.mask_copy"):
-            mask_snapshot = None if valid_mask is None else valid_mask.copy()
+            mask_snapshot = None
+            if dead:
+                mask_snapshot = valid_mask.copy()
+                tracing.count("engine.mask_snapshots")
     search_id = search.id
 
     def finalize() -> tuple[np.ndarray, np.ndarray]:
@@ -661,7 +674,7 @@ def search_packed_async(
                 copied.synchronize()
         dists = dists_host.numpy().astype(np.float32)[:b_real, :k_query]
         idx = idx_host.numpy().astype(np.int64)[:b_real, :k_query]
-        if mask_snapshot is not None and dead:
+        if mask_snapshot is not None:
             # Compact live candidates left (stable argsort on the dead
             # mask keeps ascending-distance order among the live ones),
             # then trim to k_eff.  Ragged rows pad with position -1 /

@@ -79,7 +79,36 @@ def test_device_path_search_records_its_spans(matrix):
         assert t0 <= child[4] <= child[5] <= t1
     (wait,) = rows_named(snap, "engine.d2h_wait")
     assert wait[2] == sid and wait[4] >= t1
-    assert snap.dropped == 0 and snap.counts == {}
+    # the fixture's mask has dead rows: the dispatch snapshots it
+    assert snap.dropped == 0 and snap.counts == {"engine.mask_snapshots": 1}
+
+
+@pytest.mark.parametrize("tombstones", [False, True])
+def test_partition_snapshots_the_mask_only_with_dead_rows(tombstones):
+    """Through ``Partition`` the live count is the partition's own: each
+    dispatch still records ``engine.live_count`` and ``engine.mask_copy``,
+    and copies the mask (``engine.mask_snapshots``) only while a row is
+    dead."""
+    from helix_tpu_torch.engine.vector import Partition
+
+    rng = np.random.default_rng(19)
+    part = Partition("cosine", device=torch.device("cpu"))
+    part.add_bulk(list(range(1, 4097)),
+                  rng.normal(size=(4096, 8)).astype(np.float32))
+    if tombstones:
+        for element_id in range(1, 4097, 7):
+            part.remove(element_id)
+    queries = rng.normal(size=(4, 8)).astype(np.float32)
+    dispatches = 3
+    with cpu_profile():
+        for _ in range(dispatches):
+            ids, _ = part.search_many_async(queries, 10)()
+            assert ids.shape == (4, 10)
+    snap = tracing.snapshot()
+    for name in ("engine.search", "engine.live_count", "engine.mask_copy"):
+        assert len(rows_named(snap, name)) == dispatches
+    expected = {"engine.mask_snapshots": dispatches} if tombstones else {}
+    assert snap.dropped == 0 and snap.counts == expected
 
 
 def test_host_path_records_the_search_and_its_live_count(matrix):
