@@ -207,6 +207,18 @@ int launch(const CUtensorMap& rows_map, const CUtensorMap& queries_map,
 
 }  // namespace
 
+// The plan for d, b: {queries resident (0/1), stages per consumer, stage
+// bytes, dynamic shared memory}; returns -3 when the shapes are not taken.
+extern "C" int hx_bucket_scores_plan(int d, int b, int* plan) {
+  if (d <= 0 || d % KCHUNK || (b != 128 && b != 256)) return -3;
+  const Plan p = make_bf16_plan(d, b);
+  plan[0] = p.resident;
+  plan[1] = p.depth;
+  plan[2] = p.stage_bytes;
+  plan[3] = p.smem_bytes;
+  return p.depth < 2 ? -3 : 0;
+}
+
 // xs [n, d] bf16 row-major, qs [b, d] bf16 row-major, out [n / 64, b] f32,
 // with n % 64 == 0 and n < 2^31, d % 64 == 0, b in {128, 256} and
 // 16-byte aligned pointers (the Python wrapper checks all of it).

@@ -175,7 +175,8 @@ def load() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
-        for plan in (lib.hx_i8_bucket_scores_plan,
+        for plan in (lib.hx_bucket_scores_plan,
+                     lib.hx_i8_bucket_scores_plan,
                      lib.hx_i4_bucket_scores_plan):
             plan.restype = ctypes.c_int
             plan.argtypes = [ctypes.c_int, ctypes.c_int,
@@ -205,16 +206,18 @@ def load() -> ctypes.CDLL:
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, device) -> None:
+def count_launch(wrapper, device) -> bool:
     """One more launch of ``wrapper``'s kernel, just issued on
     ``device``'s current stream; where that stream is capturing a CUDA
     graph nothing launches (the kernel becomes a node that launches at
-    each replay), so count one more ``wrapper.captured`` instead."""
+    each replay), so count one more ``wrapper.captured`` instead.
+    Returns whether the stream was capturing."""
     import torch
 
     with torch.cuda.device(device):
         capturing = torch.cuda.is_current_stream_capturing()
     note_launch(wrapper, capturing)
+    return capturing
 
 
 def note_launch(wrapper, capturing: bool) -> None:

@@ -32,9 +32,12 @@ Deliberate differences from the reference:
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-from .. import kernels
+from .. import kernels, tracing
 from ..kernels import check_launch, count_launch
 from .distance import _top_k, require_fp32_matmul
 
@@ -133,6 +136,44 @@ def bucket_scores_reference(
     return mask_pack_reduce(xs16.float() @ qs16.float().T, n_valid)
 
 
+@functools.lru_cache(maxsize=None)
+def bucket_plan(d: int, b: int) -> tuple[bool, int, int, int]:
+    """The plan ``csrc/bucket_scores.cu`` makes for queries ``[b, d]``
+    (its C entry ``hx_bucket_scores_plan``): queries resident in shared
+    memory, ring stages per consumer, stage bytes, dynamic shared
+    memory."""
+    out = (ctypes.c_int * 4)()
+    if kernels.load().hx_bucket_scores_plan(d, b, out) != 0:
+        raise ValueError(f"bucket_scores takes no plan for D={d}, B={b}")
+    return bool(out[0]), out[1], out[2], out[3]
+
+
+def staged_bytes(n: int, d: int, b: int, resident: bool, blocks: int) -> int:
+    """Bytes one launch of the kernel over ``xs [n, d]`` and ``qs [b, d]``
+    stages into shared memory by TMA: every bf16 row once, and the bf16
+    queries once per block where they are resident, or once per 64-row
+    bucket where they stream through the ring beside the rows.  The grid
+    is one block per SM, ``blocks``, or one per bucket where there are
+    fewer."""
+    buckets = n // BUCKET
+    query_loads = min(blocks, buckets) if resident else buckets
+    return 2 * d * (n + query_loads * b)
+
+
+def _count_plan(n: int, d: int, b: int, device: torch.device) -> None:
+    """The tracer's counters of one launch: by plan
+    (``kernel.bucket_scores.resident`` / ``.streamed``), the bytes it
+    stages (``.staged_bytes``) and the rows' share of them
+    (``.row_bytes``)."""
+    blocks = torch.cuda.get_device_properties(device).multi_processor_count
+    resident = bucket_plan(d, b)[0]
+    tracing.count("kernel.bucket_scores."
+                  + ("resident" if resident else "streamed"))
+    tracing.count("kernel.bucket_scores.staged_bytes",
+                  staged_bytes(n, d, b, resident, blocks))
+    tracing.count("kernel.bucket_scores.row_bytes", 2 * n * d)
+
+
 def bucket_scores(
     xs16: torch.Tensor, qs16: torch.Tensor, n_valid: int
 ) -> torch.Tensor:
@@ -142,7 +183,10 @@ def bucket_scores(
     and count the launch in ``bucket_scores.launches`` (on a stream that
     is capturing a CUDA graph nothing launches: the kernel becomes a node
     of the graph, counted in ``bucket_scores.captured``); CPU tensors run
-    :func:`bucket_scores_reference`.  Shapes the kernel does not take
+    :func:`bucket_scores_reference`.  While a profiler records, a launch
+    (not a captured node) also adds to the tracer's counters of its plan
+    (:func:`_count_plan`).
+    Shapes the kernel does not take
     (:func:`bucket_kernel_refusal`) raise on either device, and so does
     anything else the kernel does not take."""
     if xs16.dim() != 2 or qs16.dim() != 2 or xs16.shape[1] != qs16.shape[1]:
@@ -182,7 +226,9 @@ def bucket_scores(
             n_valid, stream,
         )
     check_launch("bucket_scores", rc)
-    count_launch(bucket_scores, xs16.device)
+    captured = count_launch(bucket_scores, xs16.device)
+    if tracing.recording() and not captured:
+        _count_plan(n, d, b, xs16.device)
     return out
 
 

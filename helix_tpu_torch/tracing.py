@@ -18,6 +18,8 @@ trace.
 - :func:`record` adds a span timed elsewhere, e.g. one that starts on one
   thread and ends on another.
 - :func:`count` adds to a counter.
+- :func:`recording` says whether anything records now, for a caller
+  whose count costs work of its own to make.
 - :func:`snapshot` reads what was recorded since the process started or
   the last :func:`clear`, without taking it away.
 
@@ -145,6 +147,11 @@ def record(name: str, t0_ns: int, t1_ns: int,
     sid = next(_ids)
     _add((name, sid, parent, _local.tid, t0_ns, t1_ns))
     return sid
+
+
+def recording() -> bool:
+    """Whether spans and counters record now (a profiler records)."""
+    return bool(_profiler._is_profiler_enabled)
 
 
 def count(name: str, n: float = 1) -> None:
