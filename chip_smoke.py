@@ -135,12 +135,15 @@ Phases, each failing the run on a bad check:
    single-read p50 / p90 and the B=256 median and QPS, and holds recall@10
    (tie-aware against a float64 oracle) to its floor (0.99, 0.98, 0.98,
    0.95, 1.0) and ``$distance`` to a relative 1e-6.  No bucket-scores
-   kernel may launch (the reference fuses cosine only).  The exact rung's
-   device step is split with CUDA events: the scores, the selection of
-   the candidates from [256, 1,000,448] f32 (the selection kernel), and
-   ``topk_resident`` whole.  Then the gateway serves the exact index:
-   128 ``vfast`` requests on the fast path, equal to the in-process
-   answers.
+   kernel may launch (the reference fuses cosine only); the l2 score
+   kernel (``csrc/l2_scores.cu``) launches once a search on the exact
+   rung and never below it.  On the exact rung that kernel is held to its
+   plain version bit for bit at [256, 1,000,448, 128] and timed against
+   it, and the device step is split with CUDA events: the scores, the
+   selection of the candidates from [256, 1,000,448] f32 (the selection
+   kernel), and ``topk_resident`` whole.  Then the gateway serves the
+   exact index: 128 ``vfast`` requests on the fast path, equal to the
+   in-process answers.
 12. Text: a 116,969-doc BM25 index through the engine
    (``TextSearchNodes``): the device path's ids equal the host path's,
    scores within rtol 1e-5, both timed.
@@ -2171,30 +2174,56 @@ def l2_reads(engine, part, data: np.ndarray, queries: np.ndarray,
 def l2_select_split(part, qb: np.ndarray, device: torch.device) -> dict:
     """The exact rung's B=256 device step at the search's own shapes,
     timed apart with CUDA events: the single-shot scores ``2 q.x -
-    |x|^2`` over every padded row, the selection of ``rerank * k_bucket``
+    |x|^2`` over every padded row (``distance.l2_scores``: the kernel
+    ``csrc/l2_scores.cu``), the selection of ``rerank * k_bucket``
     candidates from them (``distance._top_k``: the selection kernel),
-    and ``topk_resident`` whole (scores, selection, f32
-    re-rank)."""
-    from helix_tpu_torch.ops.distance import (SINGLE_SHOT_BYTES, _coarse_dot,
-                                              _top_k, topk_resident)
+    and ``topk_resident`` whole (scores, selection, f32 re-rank).
+
+    The kernel is held to its plain version bit for bit (SIFT's integer
+    rows keep every sum exact in f32, whatever its order) and timed
+    against it; ``kernel`` holds the ``kernels`` line's numbers.  The
+    plain version is the library calls the step made before the kernel
+    (the bf16 -> f32 cast, an f32 ``matmul``, three elementwise passes),
+    so it is the library time too."""
+    from helix_tpu_torch.ops.distance import (SINGLE_SHOT_BYTES, _top_k,
+                                              l2_scores, l2_scores_reference,
+                                              topk_resident)
 
     matrix = part.matrix
     xs16, sq = matrix.device_arrays()
     xs32 = matrix.data_device()
     qs = torch.from_numpy(matrix.prepare_queries(qb)).to(device)
+    qs16 = qs.to(torch.bfloat16)
     n, rows = matrix.n, int(xs16.shape[0])
+    d = int(xs16.shape[1])
     check(BATCH * rows * 4 <= SINGLE_SHOT_BYTES,
           f"l2 exact: [{BATCH}, {rows}] scores take the chunked scan")
     k_bucket = max(16, 1 << (K - 1).bit_length())  # search_packed_async's
     k_scan = 8 * k_bucket
-    cols = torch.arange(rows, device=device)
 
     def scores():
-        sims = 2.0 * _coarse_dot(qs.to(torch.bfloat16), xs16) - sq[None, :]
-        return torch.where((cols < n)[None, :], sims, float("-inf"))
+        return l2_scores(xs16, qs.to(torch.bfloat16), sq, n)
 
     sims = scores()
-    out = {"rows": rows, "k_scan": k_scan}
+    want = l2_scores_reference(xs16, qs16, sq, n)
+    check(torch.equal(sims.view(torch.int32), want.view(torch.int32)),
+          f"l2_scores differs from its plain version at [{BATCH}, {rows}, "
+          f"{d}] with n_valid={n}")
+    max_err = float((sims[:, :n] - want[:, :n]).abs().max().item())
+    del want
+    t = time_sides({"kernel": l2_scores, "plain": l2_scores_reference},
+                   [(xs16, qs16, sq, n)] * 3)
+    b_ms, b_by = bound(rows * d * 2 + rows * 4 + BATCH * d * 2
+                       + BATCH * rows * 4, 2.0 * rows * d * BATCH,
+                       PEAK_BF16_PER_S)
+    log(f"kernel l2_scores N={rows} D={d} B={BATCH} n_valid={n}: equal to "
+        f"its plain version bit for bit; {t['kernel']:.4f} ms (plain "
+        f"{t['plain']:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
+        f"{b_ms / t['kernel']:.1%} of the bound)")
+    out = {"rows": rows, "k_scan": k_scan,
+           "kernel": {"max_abs_err": max_err, "ms": t["kernel"],
+                      "plain_ms": t["plain"], "library_ms": t["plain"],
+                      "bound_ms": b_ms, "bound_by": b_by}}
     for name, fn, args, kw in (
             ("scores_ms", scores, (), {}),
             ("select_ms", _top_k, (sims, k_scan), {}),
@@ -2265,9 +2294,12 @@ def l2_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
     took, recall@10 (tie-aware, float64 oracle) at its floor, relative
     ``$distance``, the first search after the change, single-read p50 /
     p90 and the B=256 median.  No bucket-scores kernel may launch: the
-    reference fuses cosine only.  The exact rung's selection is timed
+    reference fuses cosine only.  ``csrc/l2_scores.cu`` launches once a
+    search on the exact rung and never below it.  The exact rung's score
+    kernel is held to its plain version and, with the selection, timed
     apart (:func:`l2_select_split`); then the gateway serves the exact
     index over HTTP (:func:`l2_gateway_step`)."""
+    from helix_tpu_torch.ops import distance as D
     from helix_tpu_torch.server.native_gateway import NativeGateway
 
     data, queries = sift_dataset(n_rows, DIM, N_PROBE + N_BATCHES * BATCH)
@@ -2293,7 +2325,12 @@ def l2_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
             f"(float64 k-th distances) {oracle_s:.1f} s")
         reset_launch_counts()
         exact_hits = None
+        # csrc/l2_scores.cu's launches on each rung, set to 0 just before
+        # it and read just after its reads: one a search on the exact
+        # rung (the first search, the singles, the batches), none below
+        l2_launches: dict = {}
         for rung, budget, floor in L2_RUNGS:
+            D.l2_scores.launches = 0
             part.hbm_budget_bytes = None if budget is None \
                 else budget * n_rows // N_ROWS
             taken = l2_rung(part)
@@ -2311,7 +2348,14 @@ def l2_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
                 L2_HOST_BATCHES if rung == "host-exact" else N_BATCHES, rung,
                 floor)
             res["first_ms"] = first_ms
-            log(f"l2 {rung}: first search after the change {first_ms:.1f} ms")
+            l2_launches[rung] = D.l2_scores.launches
+            log(f"l2 {rung}: first search after the change {first_ms:.1f} ms"
+                f", l2_scores launches {l2_launches[rung]}")
+            if device.type == "cuda":
+                want = 1 + N_PROBE + N_BATCHES if rung == "exact" else 0
+                check(l2_launches[rung] == want,
+                      f"l2 {rung}: l2_scores launched {l2_launches[rung]} "
+                      f"times, want {want}")
             if rung == "exact":
                 exact_hits = hits
                 if device.type == "cuda":
@@ -2335,8 +2379,15 @@ def l2_phase(device: torch.device, n_rows: int = N_ROWS) -> dict:
         out["launches"] = counts
         part.hbm_budget_bytes = None
         check(l2_rung(part) == "exact", "l2: the budget did not lift")
+        D.l2_scores.launches = 0
         out["gateway"] = l2_gateway_step(gateway, queries, exact_hits,
                                          device)
+        l2_launches["gateway"] = D.l2_scores.launches
+        if device.type == "cuda":
+            check(0 < l2_launches["gateway"] <= N_PROBE,
+                  f"l2 gateway: {N_PROBE} requests, l2_scores launched "
+                  f"{l2_launches['gateway']} times")
+        out["l2_scores_launches"] = l2_launches
         counts = launch_counts()
         check(not any(counts.values()),
               f"l2 gateway: bucket-scores kernels launched: {counts}")
@@ -3764,6 +3815,9 @@ KERNELS = (
     ("select_topk", "helix_tpu_torch/csrc/select_topk.cu",
      "helix_tpu/ops/fused_topk.py:244 jax.lax.approx_max_k and :262 "
      "jax.lax.top_k (XLA ops, no Pallas kernel)"),
+    ("l2_scores", "helix_tpu_torch/csrc/l2_scores.cu",
+     "helix_tpu/ops/distance.py:184-190 (XLA's dot and elementwise ops, "
+     "no Pallas kernel)"),
 )
 # The in-process phases whose paths select (every selection the
 # selection kernel: it launches in each).
@@ -3890,6 +3944,7 @@ def run_phases() -> int:
     soak = timed("soak", soak_phase, device)
     l2 = timed("l2", l2_phase, device)
     log(f"l2 on {card_line}: " + json.dumps(l2, default=float))
+    kern["l2_scores"] = l2["exact"]["split"]["kernel"]
     gc.collect()
     text = timed("text", text_phase, device)
     gc.collect()
@@ -3949,6 +4004,8 @@ def run_phases() -> int:
     launches["select_topk"] += (ladder_bench["launches"]["select_topk"]
                                 + bench["select_launches"]
                                 + soak["select_launches"])
+    # l2_scores on the l2 phase's exact rung and its gateway
+    launches["l2_scores"] = sum(l2["l2_scores_launches"].values())
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
     entries = [{"name": name, "route": "cuda", "source": source,

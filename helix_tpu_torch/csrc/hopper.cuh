@@ -1,6 +1,7 @@
 // Hopper pieces shared by the three packed bucket-scores kernels
-// (bucket_scores.cu, i8_bucket_scores.cu, i4_bucket_scores.cu) and the
-// kernel sweeps built on them (sweep.cuh: kernels 4 and 5).
+// (bucket_scores.cu, i8_bucket_scores.cu, i4_bucket_scores.cu), the
+// kernel sweeps built on them (sweep.cuh: kernels 4 and 5) and the l2
+// exact rung's score step (l2_scores.cu, whose epilogue is its own).
 //
 // All three have one shape: a persistent grid of one block per SM walks
 // 64-row buckets (bucket = blockIdx.x + i * gridDim.x); one producer
@@ -508,18 +509,20 @@ __device__ __forceinline__ void s8_products(int (&acc)[NT * 64],
   mbar_arrive(my_empty + 8 * prev);
 }
 
-// The products of one bucket from a bf16 ring with resident queries, for
-// the sweeps (sweep.cuh): kernel 1's loop, which bucket_scores.cu keeps
-// inline so that its generated code stays as it was.  Per 64-column
-// K-chunk, four m64nBk16 bf16 products with f32 sums, the previous
-// chunk's stage released once its products are done.
-template <int NT>
+// The products of one bucket from a bf16 ring (the sweeps, l2_scores):
+// kernel 1's loop, which bucket_scores.cu keeps inline so that its
+// generated code stays as it was.  Per 64-column K-chunk, four m64nBk16
+// bf16 products with f32 sums against the queries (resident at q_addr,
+// or carried by the stage after its row tile), the previous chunk's
+// stage released once its products are done.
+template <int NT, bool RESIDENT>
 __device__ __forceinline__ void bf16_products(float (&acc)[NT * 64],
                                               uint32_t my_full,
                                               uint32_t my_empty,
                                               uint32_t my_ring,
                                               uint32_t q_addr, uint32_t seq0,
-                                              int k_chunks, int depth) {
+                                              int k_chunks, int depth,
+                                              int stage_bytes) {
   constexpr int B = 128 * NT;
   uint32_t prev = 0;
   fence_acc(acc);
@@ -528,8 +531,9 @@ __device__ __forceinline__ void bf16_products(float (&acc)[NT * 64],
     const uint32_t s = seq % depth;
     mbar_wait(my_full + 8 * s, (seq / depth) & 1);
     wgmma_fence();
-    const uint32_t a = my_ring + s * ROW_TILE_BYTES;
-    const uint32_t q = q_addr + k * B * SWIZZLE_BYTES;
+    const uint32_t a = my_ring + s * stage_bytes;
+    const uint32_t q =
+        RESIDENT ? q_addr + k * B * SWIZZLE_BYTES : a + ROW_TILE_BYTES;
 #pragma unroll
     for (int kk = 0; kk < SWIZZLE_BYTES / 32; ++kk)
       wgmma_rows_queries<NT>(acc, sw128_desc(a + kk * 32),
@@ -544,6 +548,39 @@ __device__ __forceinline__ void bf16_products(float (&acc)[NT * 64],
   wgmma_wait<0>();
   fence_acc(acc);
   mbar_arrive(my_empty + 8 * prev);
+}
+
+// The producer thread's loop (kernel 2, the sweeps, l2_scores; kernel 1
+// keeps its copy inline): the block's buckets alternate between the
+// consumers' rings.  For each K-chunk of a bucket, `cols` columns of the
+// maps, it waits until the consumer has released the stage's previous
+// round, then loads the bucket's row tile by TMA and, unless RESIDENT,
+// the queries' K-chunk after it.
+template <bool RESIDENT>
+__device__ __forceinline__ void fill_rings(const CUtensorMap* rows_map,
+                                           const CUtensorMap* queries_map,
+                                           uint32_t ring, uint32_t full,
+                                           uint32_t empty, int n_buckets,
+                                           int k_chunks, int depth,
+                                           int stage_bytes, int cols) {
+  int item = 0;
+  for (int bucket = blockIdx.x; bucket < n_buckets;
+       bucket += gridDim.x, ++item) {
+    const int c = item % CONSUMERS;
+    uint32_t seq = static_cast<uint32_t>(item / CONSUMERS) * k_chunks;
+    for (int k = 0; k < k_chunks; ++k, ++seq) {
+      const uint32_t s = seq % depth;
+      const uint32_t round = seq / depth;
+      const uint32_t bar = 8 * (c * MAX_DEPTH + s);
+      if (round) mbar_wait(empty + bar, (round - 1) & 1);
+      const uint32_t stage = ring + (c * depth + s) * stage_bytes;
+      mbar_expect_tx(full + bar, stage_bytes);
+      tma_load(stage, rows_map, full + bar, k * cols, bucket * BUCKET);
+      if (!RESIDENT)
+        tma_load(stage + ROW_TILE_BYTES, queries_map, full + bar, k * cols,
+                 0);
+    }
+  }
 }
 
 // ------------------------------------------------- the sweeps' epilogue

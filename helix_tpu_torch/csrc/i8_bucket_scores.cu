@@ -97,23 +97,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         tma_load(q_addr + k * B * KCHUNK, &queries_map, q_bar, k * KCHUNK,
                  0);
     }
-    int item = 0;
-    for (int bucket = blockIdx.x; bucket < n_buckets; bucket += grid, ++item) {
-      const int c = item % CONSUMERS;
-      uint32_t seq = static_cast<uint32_t>(item / CONSUMERS) * k_chunks;
-      for (int k = 0; k < k_chunks; ++k, ++seq) {
-        const uint32_t s = seq % depth;
-        const uint32_t round = seq / depth;
-        const uint32_t bar = 8 * (c * MAX_DEPTH + s);
-        if (round) mbar_wait(empty + bar, (round - 1) & 1);
-        const uint32_t stage = ring + (c * depth + s) * stage_bytes;
-        mbar_expect_tx(full + bar, stage_bytes);
-        tma_load(stage, &rows_map, full + bar, k * KCHUNK, bucket * BUCKET);
-        if (!RESIDENT)
-          tma_load(stage + ROW_TILE_BYTES, &queries_map, full + bar,
-                   k * KCHUNK, 0);
-      }
-    }
+    fill_rings<RESIDENT>(&rows_map, &queries_map, ring, full, empty,
+                         n_buckets, k_chunks, depth, stage_bytes, KCHUNK);
     return;
   }
 

@@ -223,20 +223,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int box = 0; box < q_bytes / (B * SWIZZLE_BYTES); ++box)
       tma_load(q_addr + box * B * SWIZZLE_BYTES, &queries_map, q_bar,
                box * QUERY_COLS, 0);
-    int item = 0;
-    for (int bucket = blockIdx.x; bucket < n_buckets; bucket += grid, ++item) {
-      const int c = item % CONSUMERS;
-      uint32_t seq = static_cast<uint32_t>(item / CONSUMERS) * k_chunks;
-      for (int k = 0; k < k_chunks; ++k, ++seq) {
-        const uint32_t s = seq % depth;
-        const uint32_t round = seq / depth;
-        const uint32_t bar = 8 * (c * MAX_DEPTH + s);
-        if (round) mbar_wait(empty + bar, (round - 1) & 1);
-        mbar_expect_tx(full + bar, ROW_TILE_BYTES);
-        tma_load(ring + (c * depth + s) * ROW_TILE_BYTES, &rows_map,
-                 full + bar, k * ROW_COLS, bucket * BUCKET);
-      }
-    }
+    fill_rings<true>(&rows_map, &queries_map, ring, full, empty, n_buckets,
+                     k_chunks, depth, ROW_TILE_BYTES, ROW_COLS);
     return;
   }
 
@@ -263,8 +251,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     if constexpr (V::SCALE == Scale::Bucket) bucket_scale = scales[bucket];
     const uint32_t seq0 = static_cast<uint32_t>(iter) * k_chunks;
     if constexpr (V::DOT == Dot::Bf16) {
-      bf16_products<NT>(acc, my_full, my_empty, my_ring, q_addr, seq0,
-                        k_chunks, depth);
+      bf16_products<NT, true>(acc, my_full, my_empty, my_ring, q_addr, seq0,
+                              k_chunks, depth, ROW_TILE_BYTES);
     } else if constexpr (V::DOT == Dot::S8) {
       s8_products<NT, true>(acc, my_full, my_empty, my_ring, q_addr, seq0,
                             k_chunks, depth, ROW_TILE_BYTES);

@@ -20,7 +20,10 @@ header: ``csrc/hopper.cuh``, which all three include, writes their TMA,
 the toolkit's ``cuda.h`` (for the tensor-map type; libcuda's encoder is
 fetched with ``cudaGetDriverEntryPoint``, not linked).  The serving
 library also holds the row-wise top-k selection ``csrc/select_topk.cu``
-(``ops/topk.py``), which takes only the header's shared-memory opt-in.
+(``ops/topk.py``), which takes only the header's shared-memory opt-in,
+and the l2 exact rung's score step ``csrc/l2_scores.cu``
+(``ops/distance.py:l2_scores``), kernel 1's pipeline with a TMA-store
+epilogue.
 
 Every wrapper counts its kernel's launches (:func:`count_launch`) and
 raises on a refused launch (:func:`check_launch`).
@@ -50,6 +53,7 @@ SOURCES = (
     _HERE / "csrc" / "i8_bucket_scores.cu",
     _HERE / "csrc" / "i4_bucket_scores.cu",
     _HERE / "csrc" / "select_topk.cu",
+    _HERE / "csrc" / "l2_scores.cu",
 )
 HEADERS = (_HERE / "csrc" / "hopper.cuh",)
 SWEEP_SOURCES = (
@@ -193,6 +197,12 @@ def load() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_void_p,
+        ]
+        lib.hx_l2_scores.restype = ctypes.c_int
+        lib.hx_l2_scores.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.hx_select_topk_plan.restype = ctypes.c_int
         lib.hx_select_topk_plan.argtypes = [

@@ -3,8 +3,10 @@ port of ``helix_tpu/ops/distance.py``).
 
 Two phases, as in the reference: a coarse bf16 scan that picks
 ``rerank * k`` candidates per query (:func:`topk_resident`, plain torch
-ops; or the fused Hopper kernel through :func:`resident_topk_auto`),
-then an exact f32 re-rank of those candidates on the device.  The
+ops but for the l2 single shot's score step, the Hopper kernel
+``csrc/l2_scores.cu`` through :func:`l2_scores`; or the fused Hopper
+kernel through :func:`resident_topk_auto`), then an exact f32 re-rank of
+those candidates on the device.  The
 re-rank runs with TF32 off (:func:`require_fp32_matmul`), so
 ``$distance`` is a true f32 value as in the reference.
 
@@ -27,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import tracing
+from .. import kernels, tracing
 from . import topk as _topk
 
 
@@ -74,6 +76,120 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 def _coarse_dot(qs16: torch.Tensor, xs16: torch.Tensor) -> torch.Tensor:
     """f32 sums of bf16 products (``preferred_element_type=f32``)."""
     return qs16.float() @ xs16.float().T
+
+
+# What csrc/l2_scores.cu takes: whole 64-row tiles (N % 64, N < 2^31),
+# the feature dim in 64-column chunks (one 128-byte swizzle row of bf16;
+# PackedMatrix.DIM_PAD is 128, so every matrix qualifies), and a compute
+# width of 128 or 256 queries (its m64n128 / m64n256 product).  A batch
+# runs in launches of at most L2_MAX_WIDTH queries, each writing its rows
+# of one output.
+L2_TILE_ROWS = 64
+L2_DEPTH = 64
+L2_WIDTHS = (128, 256)
+L2_MAX_WIDTH = L2_WIDTHS[-1]
+
+
+def l2_kernel_refusal(n: int, d: int) -> str | None:
+    """Why ``csrc/l2_scores.cu`` cannot take ``xs [n, d]``, or None when
+    it can (any batch: :func:`l2_query_blocks` splits it)."""
+    if n <= 0 or n % L2_TILE_ROWS or n >= 1 << 31:
+        return f"N={n} is not a positive multiple of {L2_TILE_ROWS} below 2^31"
+    if d <= 0 or d % L2_DEPTH:
+        return f"D={d} is not a positive multiple of {L2_DEPTH}"
+    return None
+
+
+def l2_query_blocks(b: int) -> list[tuple[int, int, int]]:
+    """The launches of ``csrc/l2_scores.cu`` for ``b`` queries:
+    ``(first query, queries, compute width)`` each, at most
+    ``L2_MAX_WIDTH`` queries a launch, the width the least of
+    ``L2_WIDTHS`` that holds them (the kernel reads the missing queries
+    as zeros and writes only the given rows)."""
+    if b <= 0:
+        raise ValueError(f"l2_scores takes at least one query, got {b}")
+    blocks = []
+    for start in range(0, b, L2_MAX_WIDTH):
+        rows = min(L2_MAX_WIDTH, b - start)
+        width = next(w for w in L2_WIDTHS if rows <= w)
+        blocks.append((start, rows, width))
+    return blocks
+
+
+def l2_scores_reference(xs16: torch.Tensor, qs16: torch.Tensor,
+                        sq_norms: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`l2_scores`: ``2 q.x - |x|^2`` from
+    f32 sums of bf16 products, -inf at rows ``>= n_valid``."""
+    n = xs16.shape[0]
+    sims = 2.0 * _coarse_dot(qs16, xs16) - sq_norms[None, :]
+    cols = torch.arange(n, device=xs16.device)
+    return torch.where((cols < n_valid)[None, :], sims, float("-inf"))
+
+
+def l2_scores(xs16: torch.Tensor, qs16: torch.Tensor, sq_norms: torch.Tensor,
+              n_valid: int) -> torch.Tensor:
+    """The l2 single shot's ``[B, N]`` f32 scores of ``qs16 [B, D]``
+    against ``xs16 [N, D]`` (both bf16) with the squared norms
+    ``sq_norms [N]`` (f32): ``2 q.x - |x|^2``, -inf at rows ``>= n_valid``.
+
+    CUDA tensors launch ``csrc/l2_scores.cu`` on the current stream, once
+    per block of :func:`l2_query_blocks`, each counted in
+    ``l2_scores.launches`` (``.captured`` where the stream captures a CUDA
+    graph) and, while a profiler records, in the tracer's counter
+    ``kernel.l2_scores``; CPU tensors run :func:`l2_scores_reference`.
+    Shapes the kernel does not take (:func:`l2_kernel_refusal`) raise on
+    either device, and so does anything else the kernel does not take."""
+    if (xs16.dim() != 2 or qs16.dim() != 2 or xs16.shape[1] != qs16.shape[1]
+            or sq_norms.shape != (xs16.shape[0],)):
+        raise ValueError(
+            f"l2_scores shapes: xs [N, D], qs [B, D] and sq [N], got "
+            f"{tuple(xs16.shape)}, {tuple(qs16.shape)} and "
+            f"{tuple(sq_norms.shape)}"
+        )
+    n, d = xs16.shape
+    b = qs16.shape[0]
+    refusal = l2_kernel_refusal(n, d)
+    if refusal is not None:
+        raise ValueError(f"l2_scores: {refusal}")
+    blocks = l2_query_blocks(b)
+    devices = {xs16.device, qs16.device, sq_norms.device}
+    if devices == {torch.device("cpu")}:
+        return l2_scores_reference(xs16, qs16, sq_norms, n_valid)
+    if len(devices) != 1 or xs16.device.type != "cuda":
+        raise ValueError(
+            f"l2_scores needs every operand on one CUDA device, got "
+            f"{xs16.device}, {qs16.device} and {sq_norms.device}"
+        )
+    if (xs16.dtype != torch.bfloat16 or qs16.dtype != torch.bfloat16
+            or sq_norms.dtype != torch.float32):
+        raise TypeError(
+            f"l2_scores takes bf16 xs and qs and f32 sq, got {xs16.dtype}, "
+            f"{qs16.dtype} and {sq_norms.dtype}"
+        )
+    if not (xs16.is_contiguous() and qs16.is_contiguous()
+            and sq_norms.is_contiguous()):
+        raise ValueError("l2_scores operands must be contiguous")
+    if xs16.data_ptr() % 16 or qs16.data_ptr() % 16:
+        raise ValueError("l2_scores operands must be 16-byte aligned")
+    n_valid = max(0, min(int(n_valid), n))
+    out = torch.empty((b, n), dtype=torch.float32, device=xs16.device)
+    lib = kernels.load()
+    with torch.cuda.device(xs16.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for start, rows, width in blocks:
+            rc = lib.hx_l2_scores(
+                xs16.data_ptr(), qs16.data_ptr() + start * d * 2,
+                sq_norms.data_ptr(), out.data_ptr() + start * n * 4, n, d,
+                rows, width, n_valid, stream,
+            )
+            kernels.check_launch("l2_scores", rc)
+            if not kernels.count_launch(l2_scores, xs16.device):
+                tracing.count("kernel.l2_scores")
+    return out
+
+
+l2_scores.launches = 0
+l2_scores.captured = 0
 
 
 def _scores(qs_c: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
@@ -192,20 +308,19 @@ def topk_resident(
     b = qs.shape[0]
     k_scan = min(max(k, rerank * k), n)
     qs16 = qs.to(torch.bfloat16)
-    cols = torch.arange(n, device=xs16.device)
     if metric == "cosine" and b * n * 2 <= SINGLE_SHOT_BYTES:
         # Selection-only coarse phase: scores rounded to bf16 (only the
         # indices matter; the f32 re-rank below re-scores them).
+        cols = torch.arange(n, device=xs16.device)
         sims = _coarse_dot(qs16, xs16).to(torch.bfloat16)
         sims = torch.where((cols < n_valid)[None, :], sims, -3.0e38)
         best_s16, best_i = _top_k(sims, k_scan)   # ref :179 approx_max_k
         best_s = best_s16.float()
         best_s = torch.where(best_s <= -1.0e38, float("-inf"), best_s)
     elif b * n * 4 <= SINGLE_SHOT_BYTES:
-        sims = _coarse_dot(qs16, xs16)
-        if metric == "l2":
-            sims = 2.0 * sims - sq_norms[None, :]
-        sims = torch.where((cols < n_valid)[None, :], sims, float("-inf"))
+        # l2 alone gets here (cosine takes the branch above whenever this
+        # fits): csrc/l2_scores.cu on the card, its plain version on the CPU
+        sims = l2_scores(xs16, qs16, sq_norms, n_valid)
         best_s, best_i = _top_k(sims, k_scan)     # ref :190 approx_max_k
     else:
         # Chunked scan with a running top-k merge: bounds the [B, chunk]

@@ -184,6 +184,44 @@ def test_topk_resident_l2_matches_reference(scan, sift, request,
         assert calls == [chunk]
 
 
+@pytest.mark.parametrize("b", [8, 16, 128, 256, 512])
+def test_l2_scores_plain_version_is_the_reference_coarse_scores(b, sift,
+                                                               monkeypatch):
+    """The scores the reference's l2 single shot hands its
+    ``approx_max_k`` (``topk_resident`` run with jit off, the call
+    recorded) are ``l2_scores``'s plain version, bit for bit, with a
+    ragged ``n_valid``."""
+    import jax
+    import jax.numpy as jnp
+
+    n = 4096
+    data = sift[0][:n].copy()
+    n_valid = n - 333
+    queries = sift_rows(b, seed=100 + b)
+    sq = np.einsum("nd,nd->n", data, data).astype(np.float32)
+    sq[n_valid:] = 0.0
+    seen = []
+    real = jax.lax.approx_max_k
+
+    def spy(operand, k, **kwargs):
+        seen.append(np.asarray(operand))
+        return real(operand, k, **kwargs)
+
+    monkeypatch.setattr(jax.lax, "approx_max_k", spy)
+    with jax.disable_jit():
+        JD.topk_resident(
+            jnp.asarray(data, jnp.bfloat16), jnp.asarray(data),
+            jnp.asarray(queries), jnp.int32(n_valid), jnp.asarray(sq),
+            k=K, metric="l2")
+    (want,) = seen
+    got = TD.l2_scores(torch.from_numpy(data).to(torch.bfloat16),
+                       torch.from_numpy(queries).to(torch.bfloat16),
+                       torch.from_numpy(sq), n_valid)
+    assert want.shape == (b, n) and want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
 @pytest.mark.parametrize("rung", list(RUNG_BUDGETS))
 def test_partition_l2_rungs_match_reference(rung, sift, single_device,
                                             monkeypatch):
