@@ -60,11 +60,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops import fused_topk as F
 from ..ops import quant as Q
 from ..ops.distance import _top_k
 from .ladder import _corpus, _oracle
-from .onepass_sweep import launch_sweep, log, sweep_plan
+from .onepass_sweep import log, sweep_plan
 from .roofline import (apply_roofline, device_specs, roofline_batch_seconds,
                        timed_scan_qps)
 
@@ -220,7 +221,7 @@ class I8SweepKernel:
             if scales is None or scales.shape != (rows,):
                 raise ValueError(f"{self.name}: scales must be [{rows}]")
             ops["scales"], want["scales"] = scales, torch.float32
-        Q.check_kernel_operands(self.name, ops, want)
+        kernels.check_operands(self.name, ops, want)
         dot = "s8_as_bf16" if body.dot == "bf16" else "s8"
         if sweep_plan(dot, d, b, depth) is None:
             raise ValueError(f"{self.name}: D={d} B={b} at ring depth "
@@ -228,7 +229,11 @@ class I8SweepKernel:
                              "of range")
         shape = (b, n // F.BUCKET) if body.transposed else (n // F.BUCKET, b)
         out = torch.empty(shape, dtype=torch.float32, device=xs_i8.device)
-        launch_sweep(self, xs_i8, q, ops.get("scales"), out, n_valid, depth)
+        kernels.launch(self, getattr(kernels.load_sweep(), self.entry),
+                       xs_i8.get_device(), xs_i8.data_ptr(), q.data_ptr(),
+                       ops["scales"].data_ptr() if "scales" in ops else None,
+                       out.data_ptr(), n, d, b, max(0, min(int(n_valid), n)),
+                       depth)
         return out
 
 

@@ -56,7 +56,6 @@ import torch
 
 from .. import kernels
 from ..ops import fused_topk as F
-from ..ops.quant import check_kernel_operands
 from .ladder import _corpus, _oracle, _recall
 from .roofline import (apply_roofline, device_specs, roofline_batch_seconds,
                        timed_scan_qps)
@@ -78,26 +77,6 @@ def sweep_plan(dot: str, d: int, b: int, depth: int = 0) -> dict | None:
         return None
     return {"ring_depth": plan[1], "stage_bytes": plan[2],
             "smem_bytes": plan[3], "queries": "resident"}
-
-
-def launch_sweep(wrapper, xs: torch.Tensor, qs: torch.Tensor,
-                 scales: torch.Tensor | None, out: torch.Tensor,
-                 n_valid: int, depth: int) -> None:
-    """Launch ``wrapper.entry`` of the sweep library on the current stream
-    and count it (``fused_topk.count_launch``); raise unless it took the
-    launch."""
-    n, d = xs.shape
-    b = qs.shape[0]
-    lib = kernels.load_sweep()
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, wrapper.entry)(
-            xs.data_ptr(), qs.data_ptr(),
-            None if scales is None else scales.data_ptr(), out.data_ptr(),
-            n, d, b, max(0, min(int(n_valid), n)), depth, stream,
-        )
-    F.check_launch(wrapper.entry, rc)
-    F.count_launch(wrapper, xs.device)
 
 
 class BucketScoresVariant:
@@ -131,16 +110,19 @@ class BucketScoresVariant:
             raise ValueError(f"{self.name}: {refusal}")
         if xs16.device.type == "cpu" and qs16.device.type == "cpu":
             return self.reference(xs16, qs16, n_valid)
-        check_kernel_operands(self.name, {"xs16": xs16, "qs16": qs16},
-                              {"xs16": torch.bfloat16,
-                               "qs16": torch.bfloat16})
+        kernels.check_operands(self.name, {"xs16": xs16, "qs16": qs16},
+                               {"xs16": torch.bfloat16,
+                                "qs16": torch.bfloat16})
         if sweep_plan("bf16", d, b, depth) is None:
             raise ValueError(f"{self.name}: D={d} B={b} at ring depth "
                              f"{depth}: queries not resident or depth out "
                              "of range")
         out = torch.empty((n // F.BUCKET, b), dtype=torch.float32,
                           device=xs16.device)
-        launch_sweep(self, xs16, qs16, None, out, n_valid, depth)
+        kernels.launch(self, getattr(kernels.load_sweep(), self.entry),
+                       xs16.get_device(), xs16.data_ptr(), qs16.data_ptr(),
+                       None, out.data_ptr(), n, d, b,
+                       max(0, min(int(n_valid), n)), depth)
         return out
 
 

@@ -825,4 +825,20 @@ int ready(int* sms) {
   return 0;
 }
 
+// A launch entry's code for a launch into a stream capturing a CUDA graph:
+// the kernels became nodes of the graph, which launch at each replay
+// (kernels.py: CAPTURED).
+constexpr int HX_CAPTURED = 1 << 30;
+
+// What a launch entry returns once it has issued its kernels on `stream`
+// with result `err`: `err` where it is not 0, else HX_CAPTURED where
+// `stream` is capturing a CUDA graph, else 0.
+inline int launched(cudaStream_t stream, int err) {
+  if (err != 0) return err;
+  cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
+  const cudaError_t q = cudaStreamIsCapturing(stream, &capture);
+  if (q != cudaSuccess) return static_cast<int>(q);
+  return capture == cudaStreamCaptureStatusActive ? HX_CAPTURED : 0;
+}
+
 }  // namespace hx

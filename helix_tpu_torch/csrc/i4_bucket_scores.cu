@@ -260,7 +260,7 @@ int launch(const CUtensorMap& packed_map, const CUtensorMap& queries_map,
                                           stream>>>(
       packed_map, queries_map, bucket_scales, out, n_buckets, n_valid,
       k_chunks, plan.depth, plan.stage_bytes);
-  return static_cast<int>(cudaGetLastError());
+  return launched(stream, static_cast<int>(cudaGetLastError()));
 }
 
 }  // namespace
@@ -281,9 +281,10 @@ extern "C" int hx_i4_bucket_scores_plan(int d, int b, int* plan) {
 // [b, d] int8 row-major (the queries in chunk order), out [n / 64, b] f32,
 // with n % 64 == 0 and n < 2^31, d % 128 == 0, b in {128, 256} and
 // 16-byte aligned pointers (the Python wrapper checks all of it).
-// Launches on `stream` and returns 0 on success, a cudaError_t, or -1 when
-// libcuda offers no cuTensorMapEncodeTiled, -2 when it refuses a tensor
-// map, -3 when the shapes are not taken.  It does not synchronise.
+// Launches on `stream` and returns 0 on success, HX_CAPTURED where the
+// stream captures a CUDA graph, a cudaError_t, or -1 when libcuda offers
+// no cuTensorMapEncodeTiled, -2 when it refuses a tensor map, -3 when the
+// shapes are not taken.  It does not synchronise.
 extern "C" int hx_i4_bucket_scores(const void* packed,
                                    const void* bucket_scales,
                                    const void* q_perm, void* out, long long n,

@@ -260,7 +260,7 @@ int launch(const CUtensorMap& rows_map, const CUtensorMap& queries_map,
   l2_scores_kernel<NT, RESIDENT><<<grid, THREADS, plan.smem_bytes, stream>>>(
       rows_map, queries_map, out_map, sq, n_buckets, n_valid, k_chunks,
       plan.parts, plan.depth, plan.stage_bytes);
-  return static_cast<int>(cudaGetLastError());
+  return launched(stream, static_cast<int>(cudaGetLastError()));
 }
 
 }  // namespace
@@ -270,10 +270,10 @@ int launch(const CUtensorMap& rows_map, const CUtensorMap& queries_map,
 // 1 <= rows <= width, width in {128, 256} and 16-byte aligned pointers
 // (the Python wrapper checks all of it).  The products run over `width`
 // queries, the missing rows of qs as zeros; only the `rows` rows of out
-// are written.  Launches on `stream` and returns 0 on success, a
-// cudaError_t, or -1 when libcuda offers no cuTensorMapEncodeTiled, -2
-// when it refuses a tensor map, -3 when the shapes are not taken.  It
-// does not synchronise.
+// are written.  Launches on `stream` and returns 0 on success,
+// HX_CAPTURED where the stream captures a CUDA graph, a cudaError_t, or -1
+// when libcuda offers no cuTensorMapEncodeTiled, -2 when it refuses a
+// tensor map, -3 when the shapes are not taken.  It does not synchronise.
 extern "C" int hx_l2_scores(const void* xs, const void* qs, const void* sq,
                             void* out, long long n, int d, int rows,
                             int width, int n_valid, void* stream) {

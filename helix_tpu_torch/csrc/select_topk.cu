@@ -126,10 +126,6 @@ constexpr int BLOCK_K_MAX = MAX_CAP - THREADS * BV;  // 14,336
 constexpr int SMS = 132;            // an H100 SXM's SMs: the planner's target
 constexpr int MAX_STAGES = 12;
 
-// hx_select_topk's code for a launch into a capturing stream
-// (ops/topk.py:CAPTURED).
-constexpr int HX_CAPTURED = 1 << 30;
-
 // The dtype codes of ops/topk.py:_DTYPE_CODES.
 enum Dtype : int { F32 = 0, BF16 = 1, I32 = 2 };
 // The paths of plan_of (ops/topk.py:PATHS).
@@ -1369,8 +1365,8 @@ extern "C" int hx_select_topk_plan(long long rows, long long width, int k,
 // x: a [rows, width] view with element strides s0, s1 of dtype F32, BF16
 // or I32; vals [rows, k] (x's dtype) and ids [rows, k] int64 contiguous;
 // scratch holds the plan's scratch bytes (null when that is 0).  Launches
-// on `stream`; returns 0, HX_CAPTURED (launched into a stream capturing a
-// CUDA graph: a node, not a launch), a cudaError_t, or -3 when the shape
+// on `stream`; returns 0, hx::HX_CAPTURED (launched into a stream capturing
+// a CUDA graph: a node, not a launch), a cudaError_t, or -3 when the shape
 // is not taken.
 extern "C" int hx_select_topk(const void* x, int dtype, long long rows,
                               long long width, long long s0,
@@ -1384,9 +1380,7 @@ extern "C" int hx_select_topk(const void* x, int dtype, long long rows,
     return -3;
   if (scratch_bytes > 0 && scratch == nullptr) return -3;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
-  int err = static_cast<int>(cudaStreamIsCapturing(s, &capture));
-  if (err != 0) return err;
+  int err;
   if (pl.path == WARP) {
     err = select_warp_path(x, dtype, rows, width, s0, s1, k, pl.param, vals,
                            ids, s);
@@ -1402,6 +1396,5 @@ extern "C" int hx_select_topk(const void* x, int dtype, long long rows,
       err = select_wide(x, dtype, rows, width, s0, s1, k, vals, ids,
                         scratch, s);
   }
-  if (err != 0) return err;
-  return capture == cudaStreamCaptureStatusActive ? HX_CAPTURED : 0;
+  return hx::launched(s, err);
 }

@@ -288,7 +288,7 @@ int sweep_launch(const CUtensorMap& rows_map, const CUtensorMap& queries_map,
   sweep_kernel<NT, V><<<grid, THREADS, plan.smem_bytes, stream>>>(
       rows_map, queries_map, scales, out, n_buckets, n_valid, k_chunks,
       plan.query_bytes, plan.depth);
-  return static_cast<int>(cudaGetLastError());
+  return launched(stream, static_cast<int>(cudaGetLastError()));
 }
 
 // xs [n, d] (bf16 for Dot::Bf16, else int8) row-major, qs [b, d] (int8
@@ -296,8 +296,9 @@ int sweep_launch(const CUtensorMap& rows_map, const CUtensorMap& queries_map,
 // null), out [n / 64, b] f32 ([b, n / 64] when transposed), with n % 64
 // == 0 and n < 2^31, d a multiple of 128 bytes of a row, b in {128, 256},
 // and 16-byte aligned pointers (the Python wrappers check it).  Launches
-// on `stream`; returns 0, a cudaError_t, -1 (no cuTensorMapEncodeTiled),
-// -2 (a tensor map refused) or -3 (a shape not taken).
+// on `stream`; returns 0, HX_CAPTURED (a capturing stream), a cudaError_t,
+// -1 (no cuTensorMapEncodeTiled), -2 (a tensor map refused) or -3 (a shape
+// not taken).
 template <class V>
 int sweep_entry(const void* xs, const void* qs, const void* scales,
                 void* out, long long n, int d, int b, int n_valid, int depth,

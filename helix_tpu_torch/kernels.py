@@ -25,8 +25,11 @@ and the l2 exact rung's score step ``csrc/l2_scores.cu``
 (``ops/distance.py:l2_scores``), kernel 1's pipeline with a TMA-store
 epilogue.
 
-Every wrapper counts its kernel's launches (:func:`count_launch`) and
-raises on a refused launch (:func:`check_launch`).
+Every wrapper checks its operands with :func:`check_operands` and
+calls its C entry through :func:`launch`, the one caller of a launch
+entry: it passes the device's current stream, counts the launch (or the
+node it became on a stream capturing a CUDA graph, which every entry
+reports as :data:`CAPTURED`) and raises on a refused launch.
 
 The kernel sweeps' sources (``SWEEP_SOURCES``: kernels 4 and 5, the
 ports of ``benchmarks/onepass_sweep.py`` and ``benchmarks/i8_sweep.py``)
@@ -213,41 +216,58 @@ def load() -> ctypes.CDLL:
         return lib
 
 
+# A C launch entry's code for a launch into a stream capturing a CUDA
+# graph (csrc/hopper.cuh: HX_CAPTURED).
+CAPTURED = 1 << 30
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, device) -> bool:
-    """One more launch of ``wrapper``'s kernel, just issued on
-    ``device``'s current stream; where that stream is capturing a CUDA
-    graph nothing launches (the kernel becomes a node that launches at
-    each replay), so count one more ``wrapper.captured`` instead.
-    Returns whether the stream was capturing."""
+def check_operands(name: str, operands: dict, dtypes: dict) -> None:
+    """Raise unless every operand is a contiguous, 16-byte aligned CUDA
+    tensor of its dtype, all on one device."""
+    device = next(iter(operands.values())).device
+    for key, t in operands.items():
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(
+                f"{name} needs every operand on one CUDA device, got {key} "
+                f"on {t.device}"
+            )
+        if t.dtype != dtypes[key]:
+            raise TypeError(f"{name}: {key} must be {dtypes[key]}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+
+
+def launch(wrapper, entry, device: int, *args) -> bool:
+    """Call the C launch entry ``entry`` with ``args`` and the current
+    stream of CUDA device ``device`` (made the current device first where
+    it is not), and count the call in ``wrapper.launches``; where the
+    entry returns :data:`CAPTURED` the stream was capturing a CUDA graph,
+    nothing launched and the kernel became a node of the graph (which
+    launches at each replay), counted in ``wrapper.captured``.  Any other
+    code but 0 raises.  Returns whether the stream was capturing."""
     import torch
 
-    with torch.cuda.device(device):
-        capturing = torch.cuda.is_current_stream_capturing()
-    note_launch(wrapper, capturing)
-    return capturing
-
-
-def note_launch(wrapper, capturing: bool) -> None:
-    """One more launch of ``wrapper``'s kernel, or one more captured node
-    where the stream it launched on was ``capturing`` a CUDA graph."""
+    if device == torch._C._cuda_getDevice():
+        rc = entry(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = entry(*args, torch._C._cuda_getCurrentRawStream(device))
+    captured = rc == CAPTURED
+    if rc and not captured:
+        raise RuntimeError(
+            f"{entry.__name__} kernel launch failed: code {rc} (a CUDA "
+            "error; -1: no cuTensorMapEncodeTiled, -2: tensor map refused, "
+            "-3: shape refused)"
+        )
     with _LAUNCH_LOCK:  # searches may run on several threads
-        if capturing:
+        if captured:
             wrapper.captured += 1
         else:
             wrapper.launches += 1
-
-
-def check_launch(name: str, rc: int) -> None:
-    """Raise unless a kernel's C entry returned 0."""
-    if rc != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: code {rc} (a CUDA error; -1: no "
-            "cuTensorMapEncodeTiled, -2: tensor map refused, -3: shape "
-            "refused)"
-        )
+    return captured
 
 
 # The sweep kernels' C entries (csrc/sweep.cuh: HX_SWEEP_ENTRY): kernel 4

@@ -132,13 +132,13 @@ def l2_scores(xs16: torch.Tensor, qs16: torch.Tensor, sq_norms: torch.Tensor,
     against ``xs16 [N, D]`` (both bf16) with the squared norms
     ``sq_norms [N]`` (f32): ``2 q.x - |x|^2``, -inf at rows ``>= n_valid``.
 
-    CUDA tensors launch ``csrc/l2_scores.cu`` on the current stream, once
-    per block of :func:`l2_query_blocks`, each counted in
-    ``l2_scores.launches`` (``.captured`` where the stream captures a CUDA
-    graph) and, while a profiler records, in the tracer's counter
-    ``kernel.l2_scores``; CPU tensors run :func:`l2_scores_reference`.
-    Shapes the kernel does not take (:func:`l2_kernel_refusal`) raise on
-    either device, and so does anything else the kernel does not take."""
+    CUDA tensors launch ``csrc/l2_scores.cu`` through
+    :func:`~helix_tpu_torch.kernels.launch`, once per block of
+    :func:`l2_query_blocks`, each counted in ``l2_scores.launches``
+    (``.captured`` where the stream captures a CUDA graph); CPU tensors
+    run :func:`l2_scores_reference`.  Shapes the kernel does not take
+    (:func:`l2_kernel_refusal`) raise on either device, and so does
+    anything else the kernel does not take."""
     if (xs16.dim() != 2 or qs16.dim() != 2 or xs16.shape[1] != qs16.shape[1]
             or sq_norms.shape != (xs16.shape[0],)):
         raise ValueError(
@@ -155,36 +155,20 @@ def l2_scores(xs16: torch.Tensor, qs16: torch.Tensor, sq_norms: torch.Tensor,
     devices = {xs16.device, qs16.device, sq_norms.device}
     if devices == {torch.device("cpu")}:
         return l2_scores_reference(xs16, qs16, sq_norms, n_valid)
-    if len(devices) != 1 or xs16.device.type != "cuda":
-        raise ValueError(
-            f"l2_scores needs every operand on one CUDA device, got "
-            f"{xs16.device}, {qs16.device} and {sq_norms.device}"
-        )
-    if (xs16.dtype != torch.bfloat16 or qs16.dtype != torch.bfloat16
-            or sq_norms.dtype != torch.float32):
-        raise TypeError(
-            f"l2_scores takes bf16 xs and qs and f32 sq, got {xs16.dtype}, "
-            f"{qs16.dtype} and {sq_norms.dtype}"
-        )
-    if not (xs16.is_contiguous() and qs16.is_contiguous()
-            and sq_norms.is_contiguous()):
-        raise ValueError("l2_scores operands must be contiguous")
-    if xs16.data_ptr() % 16 or qs16.data_ptr() % 16:
-        raise ValueError("l2_scores operands must be 16-byte aligned")
+    kernels.check_operands(
+        "l2_scores", {"xs16": xs16, "qs16": qs16, "sq_norms": sq_norms},
+        {"xs16": torch.bfloat16, "qs16": torch.bfloat16,
+         "sq_norms": torch.float32},
+    )
     n_valid = max(0, min(int(n_valid), n))
     out = torch.empty((b, n), dtype=torch.float32, device=xs16.device)
-    lib = kernels.load()
-    with torch.cuda.device(xs16.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for start, rows, width in blocks:
-            rc = lib.hx_l2_scores(
-                xs16.data_ptr(), qs16.data_ptr() + start * d * 2,
-                sq_norms.data_ptr(), out.data_ptr() + start * n * 4, n, d,
-                rows, width, n_valid, stream,
-            )
-            kernels.check_launch("l2_scores", rc)
-            if not kernels.count_launch(l2_scores, xs16.device):
-                tracing.count("kernel.l2_scores")
+    entry, dev = kernels.load().hx_l2_scores, xs16.get_device()
+    for start, rows, width in blocks:
+        kernels.launch(
+            l2_scores, entry, dev, xs16.data_ptr(),
+            qs16.data_ptr() + start * d * 2, sq_norms.data_ptr(),
+            out.data_ptr() + start * n * 4, n, d, rows, width, n_valid,
+        )
     return out
 
 

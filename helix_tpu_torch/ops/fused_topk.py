@@ -38,7 +38,6 @@ import functools
 import torch
 
 from .. import kernels, tracing
-from ..kernels import check_launch, count_launch
 from .distance import _top_k, require_fp32_matmul
 
 # Row padding granularity and bucket width (same values and meaning as
@@ -161,14 +160,11 @@ def staged_bytes(n: int, d: int, b: int, resident: bool, blocks: int) -> int:
 
 
 def _count_plan(n: int, d: int, b: int, device: torch.device) -> None:
-    """The tracer's counters of one launch: by plan
-    (``kernel.bucket_scores.resident`` / ``.streamed``), the bytes it
-    stages (``.staged_bytes``) and the rows' share of them
+    """The tracer's counters of one launch: the bytes it stages
+    (``kernel.bucket_scores.staged_bytes``) and the rows' share of them
     (``.row_bytes``)."""
     blocks = torch.cuda.get_device_properties(device).multi_processor_count
     resident = bucket_plan(d, b)[0]
-    tracing.count("kernel.bucket_scores."
-                  + ("resident" if resident else "streamed"))
     tracing.count("kernel.bucket_scores.staged_bytes",
                   staged_bytes(n, d, b, resident, blocks))
     tracing.count("kernel.bucket_scores.row_bytes", 2 * n * d)
@@ -179,13 +175,12 @@ def bucket_scores(
 ) -> torch.Tensor:
     """``[N / BUCKET, B]`` f32 packed winners (see module docstring).
 
-    CUDA tensors launch ``csrc/bucket_scores.cu`` on the current stream
-    and count the launch in ``bucket_scores.launches`` (on a stream that
-    is capturing a CUDA graph nothing launches: the kernel becomes a node
-    of the graph, counted in ``bucket_scores.captured``); CPU tensors run
-    :func:`bucket_scores_reference`.  While a profiler records, a launch
-    (not a captured node) also adds to the tracer's counters of its plan
-    (:func:`_count_plan`).
+    CUDA tensors launch ``csrc/bucket_scores.cu`` through
+    :func:`~helix_tpu_torch.kernels.launch`, counted in
+    ``bucket_scores.launches`` (``.captured`` where the stream captures a
+    CUDA graph); CPU tensors run :func:`bucket_scores_reference`.  While
+    a profiler records, a launch (not a captured node) also adds to the
+    tracer's counters of the bytes it stages (:func:`_count_plan`).
     Shapes the kernel does not take
     (:func:`bucket_kernel_refusal`) raise on either device, and so does
     anything else the kernel does not take."""
@@ -201,33 +196,18 @@ def bucket_scores(
         raise ValueError(f"bucket_scores: {refusal}")
     if xs16.device.type == "cpu" and qs16.device.type == "cpu":
         return bucket_scores_reference(xs16, qs16, n_valid)
-    if xs16.device.type != "cuda" or qs16.device != xs16.device:
-        raise ValueError(
-            f"bucket_scores needs both operands on one CUDA device, got "
-            f"{xs16.device} and {qs16.device}"
-        )
-    if xs16.dtype != torch.bfloat16 or qs16.dtype != torch.bfloat16:
-        raise TypeError(
-            f"bucket_scores takes bf16 operands, got {xs16.dtype} and "
-            f"{qs16.dtype}"
-        )
-    if not (xs16.is_contiguous() and qs16.is_contiguous()):
-        raise ValueError("bucket_scores operands must be contiguous")
-    if xs16.data_ptr() % 16 or qs16.data_ptr() % 16:
-        raise ValueError("bucket_scores operands must be 16-byte aligned")
+    kernels.check_operands(
+        "bucket_scores", {"xs16": xs16, "qs16": qs16},
+        {"xs16": torch.bfloat16, "qs16": torch.bfloat16},
+    )
     n_valid = max(0, min(int(n_valid), n))
     out = torch.empty((n // BUCKET, b), dtype=torch.float32,
                       device=xs16.device)
-    lib = kernels.load()
-    with torch.cuda.device(xs16.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hx_bucket_scores(
-            xs16.data_ptr(), qs16.data_ptr(), out.data_ptr(), n, d, b,
-            n_valid, stream,
-        )
-    check_launch("bucket_scores", rc)
-    captured = count_launch(bucket_scores, xs16.device)
-    if tracing.recording() and not captured:
+    captured = kernels.launch(
+        bucket_scores, kernels.load().hx_bucket_scores, xs16.get_device(),
+        xs16.data_ptr(), qs16.data_ptr(), out.data_ptr(), n, d, b, n_valid,
+    )
+    if not captured and tracing.recording():
         _count_plan(n, d, b, xs16.device)
     return out
 

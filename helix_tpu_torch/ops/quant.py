@@ -49,8 +49,6 @@ from .fused_topk import (
     MAX_QUERY_BLOCK,
     MIN_QUERY_BLOCK,
     TILE,
-    check_launch,
-    count_launch,
     kernel_refusal,
     mask_pack_reduce,
     pad_rows_for_fused,
@@ -461,34 +459,17 @@ def i8_kernel_refusal(n: int, d: int, b: int) -> str | None:
     return kernel_refusal(n, d, b, I8_KERNEL_DEPTH)
 
 
-def check_kernel_operands(name: str, operands: dict, dtypes: dict) -> None:
-    """Raise unless every operand is a contiguous, 16-byte aligned CUDA
-    tensor of its dtype, all on one device."""
-    device = next(iter(operands.values())).device
-    for key, t in operands.items():
-        if t.device.type != "cuda" or t.device != device:
-            raise ValueError(
-                f"{name} needs every operand on one CUDA device, got {key} "
-                f"on {t.device}"
-            )
-        if t.dtype != dtypes[key]:
-            raise TypeError(f"{name}: {key} must be {dtypes[key]}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {key} must be 16-byte aligned")
-
-
 def i8_bucket_scores(
     xs_i8: torch.Tensor, q_i8: torch.Tensor, n_valid: int
 ) -> torch.Tensor:
     """``[N / BUCKET, B]`` f32 packed winners over int8 codes.
 
-    CUDA tensors launch ``csrc/i8_bucket_scores.cu`` on the current stream
-    and count the launch in ``i8_bucket_scores.launches``; CPU tensors
-    run :func:`i8_bucket_scores_reference` at any shape.  On other
-    devices, a shape :func:`i8_kernel_refusal` names and anything else the
-    kernel does not take raise."""
+    CUDA tensors launch ``csrc/i8_bucket_scores.cu`` through
+    :func:`~helix_tpu_torch.kernels.launch`, counted in
+    ``i8_bucket_scores.launches``; CPU tensors run
+    :func:`i8_bucket_scores_reference` at any shape.  On other devices, a
+    shape :func:`i8_kernel_refusal` names and anything else the kernel
+    does not take raise."""
     if xs_i8.device.type == "cpu" and q_i8.device.type == "cpu":
         return i8_bucket_scores_reference(xs_i8, q_i8, n_valid)
     if xs_i8.dim() != 2 or q_i8.dim() != 2 or xs_i8.shape[1] != q_i8.shape[1]:
@@ -501,22 +482,18 @@ def i8_bucket_scores(
     refusal = i8_kernel_refusal(n, d, b)
     if refusal is not None:
         raise ValueError(f"i8_bucket_scores: {refusal}")
-    check_kernel_operands(
+    kernels.check_operands(
         "i8_bucket_scores", {"xs_i8": xs_i8, "q_i8": q_i8},
         {"xs_i8": torch.int8, "q_i8": torch.int8},
     )
     n_valid = max(0, min(int(n_valid), n))
     out = torch.empty((n // BUCKET, b), dtype=torch.float32,
                       device=xs_i8.device)
-    lib = kernels.load()
-    with torch.cuda.device(xs_i8.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hx_i8_bucket_scores(
-            xs_i8.data_ptr(), q_i8.data_ptr(), out.data_ptr(), n, d, b,
-            n_valid, stream,
-        )
-    check_launch("i8_bucket_scores", rc)
-    count_launch(i8_bucket_scores, xs_i8.device)
+    kernels.launch(
+        i8_bucket_scores, kernels.load().hx_i8_bucket_scores,
+        xs_i8.get_device(), xs_i8.data_ptr(), q_i8.data_ptr(),
+        out.data_ptr(), n, d, b, n_valid,
+    )
     return out
 
 

@@ -38,8 +38,6 @@ from .. import kernels
 from .distance import _round_up, _top_k
 from .fused_topk import (
     BUCKET,
-    check_launch,
-    count_launch,
     descale_packed,
     kernel_refusal,
     mask_pack_reduce,
@@ -50,7 +48,6 @@ from .quant import (
     _padded_rows,
     _quantize_queries,
     _sq_device,
-    check_kernel_operands,
     fused_coarse,
     fused_route,
     int_dots,
@@ -201,9 +198,10 @@ def i4_bucket_scores(
 ) -> torch.Tensor:
     """``[N / BUCKET, B]`` f32 de-scaled packed winners over packed int4.
 
-    CUDA tensors launch ``csrc/i4_bucket_scores.cu`` on the current
-    stream with the queries in chunk order (:func:`chunk_ordered_queries`)
-    and count the launch in ``i4_bucket_scores.launches``; CPU tensors run
+    CUDA tensors launch ``csrc/i4_bucket_scores.cu`` through
+    :func:`~helix_tpu_torch.kernels.launch` with the queries in chunk
+    order (:func:`chunk_ordered_queries`), counted in
+    ``i4_bucket_scores.launches``; CPU tensors run
     :func:`i4_bucket_scores_reference` at any shape.  On other devices, a
     shape :func:`i4_kernel_refusal` names and anything else the kernel
     does not take raise."""
@@ -224,7 +222,7 @@ def i4_bucket_scores(
     refusal = i4_kernel_refusal(n, d, b)
     if refusal is not None:
         raise ValueError(f"i4_bucket_scores: {refusal}")
-    check_kernel_operands(
+    kernels.check_operands(
         "i4_bucket_scores", operands,
         {"packed": torch.uint8, "bucket_scales": torch.float32,
          "q_i8": torch.int8},
@@ -238,15 +236,11 @@ def i4_bucket_scores(
     out = torch.empty((n // BUCKET, b), dtype=torch.float32,
                       device=packed.device)
     q_perm = chunk_ordered_queries(q_i8)
-    lib = kernels.load()
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hx_i4_bucket_scores(
-            packed.data_ptr(), bucket_scales.data_ptr(), q_perm.data_ptr(),
-            out.data_ptr(), n, d, b, n_valid, stream,
-        )
-    check_launch("i4_bucket_scores", rc)
-    count_launch(i4_bucket_scores, packed.device)
+    kernels.launch(
+        i4_bucket_scores, kernels.load().hx_i4_bucket_scores,
+        packed.get_device(), packed.data_ptr(), bucket_scales.data_ptr(),
+        q_perm.data_ptr(), out.data_ptr(), n, d, b, n_valid,
+    )
     return out
 
 

@@ -57,7 +57,6 @@ MAX_CAP = 16384       # words of one block's buffers
 BLOCK_K_MAX = MAX_CAP - THREADS * BV   # 14,336: past it the wide path
 SMS = 132             # an H100 SXM's SMs: the planner's target
 SLICE = 16384         # the wide path's columns per block
-CAPTURED = 1 << 30    # hx_select_topk's code for a launch into a capture
 PATHS = ("warp", "block", "wide")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _INT32_MAX = 0x7FFFFFFF
@@ -197,9 +196,10 @@ def select_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     and scratch from the caching allocator (``Tensor.new_empty``: safe
     under CUDA-graph capture and from several threads), or raises outside
     :func:`supports_select`.  The host's part is one plan lookup (cached
-    per shape and dtype), the allocations, a device guard only where
-    ``x`` is not on the current device, one capture check and one
-    ``ctypes`` call."""
+    per shape and dtype), the allocations and one
+    :func:`~helix_tpu_torch.kernels.launch`: a device guard only where
+    ``x`` is not on the current device and one ``ctypes`` call."""
+    global _ENTRY
     if x.dim() != 2:
         if x.dim() == 0:
             raise ValueError("select_topk needs at least one axis")
@@ -221,30 +221,14 @@ def select_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     if rows == 0 or k == 0:
         return vals, ids
     scratch = x.new_empty(nbytes, dtype=torch.uint8) if nbytes else None
-    dev = x.get_device()
-    if dev != torch._C._cuda_getDevice():
-        with torch.cuda.device(dev):
-            _launch(x, rows, width, k, vals, ids, scratch, nbytes, dev)
-    else:
-        _launch(x, rows, width, k, vals, ids, scratch, nbytes, dev)
-    return vals, ids
-
-
-def _launch(x, rows, width, k, vals, ids, scratch, nbytes, dev) -> None:
-    """One call of the C entry on the current device ``dev``, counted as
-    a launch or, where the stream captures a CUDA graph (the entry says
-    so), a captured node."""
-    global _ENTRY
     if _ENTRY is None:
         _ENTRY = kernels.load().hx_select_topk
     s0, s1 = x.stride()
-    rc = _ENTRY(x.data_ptr(), _DTYPE_CODES[x.dtype], rows, width, s0, s1, k,
-                vals.data_ptr(), ids.data_ptr(),
-                scratch.data_ptr() if nbytes else None, nbytes,
-                torch._C._cuda_getCurrentRawStream(dev))
-    if rc and rc != CAPTURED:
-        kernels.check_launch("select_topk", rc)
-    kernels.note_launch(select_topk, rc == CAPTURED)
+    kernels.launch(select_topk, _ENTRY, x.get_device(), x.data_ptr(),
+                   _DTYPE_CODES[x.dtype], rows, width, s0, s1, k,
+                   vals.data_ptr(), ids.data_ptr(),
+                   scratch.data_ptr() if nbytes else None, nbytes)
+    return vals, ids
 
 
 select_topk.launches = 0

@@ -20,7 +20,6 @@ import os
 import shutil
 import subprocess
 import sys
-from contextlib import nullcontext
 from types import SimpleNamespace
 from pathlib import Path
 
@@ -403,21 +402,27 @@ def test_graph_checks_refuse_a_wrong_replay():
 
 
 def test_wrapper_counts_graph_nodes_apart_from_launches(monkeypatch):
-    """Where the stream captures a CUDA graph the wrappers count a node,
-    not a launch (the node launches at each replay)."""
+    """Where the stream captures a CUDA graph the C entry says so and
+    ``kernels.launch`` counts a node, not a launch (the node launches at
+    each replay); every kernel wrapper carries both counters."""
+    from helix_tpu_torch import kernels
+    from helix_tpu_torch.benchmarks import i8_sweep, onepass_sweep
+    from helix_tpu_torch.ops import distance, quant, quant4, topk
     from helix_tpu_torch.ops import fused_topk as F
 
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda dev: 0, raising=False)
     wrapper = SimpleNamespace(launches=0, captured=0)
-    monkeypatch.setattr(F.torch.cuda, "device", lambda dev: nullcontext())
-    for capturing in (False, True, True):
-        monkeypatch.setattr(F.torch.cuda, "is_current_stream_capturing",
-                            lambda c=capturing: c)
-        F.count_launch(wrapper, torch.device("cuda", 0))
+    for rc in (0, kernels.CAPTURED, kernels.CAPTURED):
+        kernels.launch(wrapper, lambda stream, rc=rc: rc, 0)
     assert (wrapper.launches, wrapper.captured) == (1, 2)
-    from helix_tpu_torch.ops import quant, quant4
     for fn in (F.bucket_scores, quant.i8_bucket_scores,
-               quant4.i4_bucket_scores):
-        assert isinstance(fn.captured, int)
+               quant4.i4_bucket_scores, distance.l2_scores, topk.select_topk,
+               *onepass_sweep.KERNELS.values(), *i8_sweep.KERNELS.values()):
+        assert isinstance(fn.launches, int), fn
+        assert isinstance(fn.captured, int), fn
 
 
 @pytest.mark.cuda

@@ -11,7 +11,7 @@ on CPU tensors.  The reference's own l2 coarse scores are held to the
 plain version in ``tests/test_torch_l2.py``, which imports JAX.  On the
 card (``cuda``): the kernel bit for bit against the plain version on
 integer rows at SIFT1M's 1,000,448 padded rows, within a stated
-tolerance on normal bf16 rows, its launch counters, and ``topk_resident``
+tolerance on normal bf16 rows, its launch counter, and ``topk_resident``
 answering as on the CPU.  The module imports no JAX, so its ``cuda``
 tests run on the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_l2_scores.py``.
@@ -143,13 +143,12 @@ def test_topk_resident_on_cpu_tensors_runs_the_plain_version(monkeypatch,
     n_valid = n - 100
     sq = sq_norms_of(xs, n_valid)
     launches = (D.l2_scores.launches, D.l2_scores.captured)
-    before = tracing.snapshot().counts.get("kernel.l2_scores", 0)
     with profile(activities=[ProfilerActivity.CPU]):
         dists, ids = D.topk_resident(xs.to(torch.bfloat16), xs, qs, n_valid,
                                      sq, k=10, metric=metric)
     assert seen == [((n, d), (b, d), n_valid)] * calls
     assert (D.l2_scores.launches, D.l2_scores.captured) == launches
-    assert tracing.snapshot().counts.get("kernel.l2_scores", 0) == before
+    assert "kernel.l2_scores" not in tracing.snapshot().counts
     assert ids.shape == (b, 10) and int(ids.max()) < n_valid
     if metric == "l2":
         exact = ((qs.double()[:, None, :] - xs.double()[None, :n_valid]) ** 2
@@ -247,9 +246,8 @@ def test_kernel_on_normal_rows_within_the_f32_bound():
 
 @pytest.mark.cuda
 def test_launch_counters_equal_the_calls():
-    """One launch per 256 queries: ``launches`` counts each, and under a
-    profiler so does the tracer's ``kernel.l2_scores``; without one the
-    tracer counts nothing."""
+    """One launch per 256 queries, each counted in ``launches`` alone,
+    with a profiler or without: the tracer keeps no count of its own."""
     dev = card()
     n, d = 8192, 128
     xs16 = torch.zeros((n, d), dtype=torch.bfloat16, device=dev)
@@ -259,18 +257,15 @@ def test_launch_counters_equal_the_calls():
         D.l2_scores(xs16, torch.zeros((b, d), dtype=torch.bfloat16,
                                       device=dev), sq, n)
 
-    def traced():
-        return tracing.snapshot().counts.get("kernel.l2_scores", 0)
-
-    launches, before = D.l2_scores.launches, traced()
+    launches = D.l2_scores.launches
     calls(256)
-    assert (D.l2_scores.launches - launches, traced() - before) == (1, 0)
+    assert D.l2_scores.launches - launches == 1
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         calls(16)
         calls(512)
         torch.cuda.synchronize(dev)
     assert D.l2_scores.launches - launches == 4
-    assert traced() - before == 3
+    assert "kernel.l2_scores" not in tracing.snapshot().counts
 
 
 @pytest.mark.cuda

@@ -8,7 +8,8 @@ reference (:mod:`hxbench.reference`); the fused step's core
 (``fused_candidates``) with kernel 1's plain version at B=256, where it
 re-ranks 512 bucket winners; the bytes kernel 1 stages under either of
 its plans.  On the card (``cuda``): kernel 1 bit for bit against its
-plain version at D=1536, and its plan counters in a profiled launch.
+plain version at D=1536, and its staged-bytes counters in a profiled
+launch.
 The module imports no JAX, so its ``cuda`` tests run on the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_wide_exact.py``.
 """
@@ -188,13 +189,14 @@ def test_kernel_bit_for_bit_at_d1536(b):
 
 @pytest.mark.cuda
 def test_plan_counters_in_a_profiled_launch():
-    """Under a profiler each launch counts its plan, the bytes it stages
-    and its rows' bytes: streamed at D=1536, resident at D=128.  Without
-    one nothing is counted."""
+    """Under a profiler each launch counts the bytes it stages and its
+    rows' bytes, by its plan: streamed at D=1536, resident at D=128.
+    Without one nothing is counted, and no counter names the plan (the
+    staged bytes tell the two apart)."""
     dev = card()
     n, b = TF.TILE, 256
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    names = ("streamed", "resident", "staged_bytes", "row_bytes")
+    names = ("staged_bytes", "row_bytes")
 
     def counts():
         got = tracing.snapshot().counts
@@ -214,9 +216,9 @@ def test_plan_counters_in_a_profiled_launch():
         launch(128)
         torch.cuda.synchronize(dev)
     after = counts()
-    assert after["streamed"] - before["streamed"] == 1
-    assert after["resident"] - before["resident"] == 1
     assert after["staged_bytes"] - before["staged_bytes"] == \
         TF.staged_bytes(n, D, b, False, sms) + \
         TF.staged_bytes(n, 128, b, True, sms)
     assert after["row_bytes"] - before["row_bytes"] == 2 * n * (D + 128)
+    plans = {"kernel.bucket_scores.resident", "kernel.bucket_scores.streamed"}
+    assert not plans & set(tracing.snapshot().counts)
