@@ -8,7 +8,9 @@
 // thread keeps a ring of stages per consumer warpgroup full with TMA
 // loads (128-byte swizzle, full/empty mbarriers); two consumer warpgroups
 // take alternate buckets and issue wgmma with M = 64 = one bucket against
-// the queries; the packed bucket max is taken in registers.  This header
+// the queries; the packed bucket max is taken in registers.  (Kernel 1's
+// streamed plan, bucket_scores.cu's own kernel for wide D, shares one
+// ring between its consumers across a 2-block cluster instead.)  This header
 // holds the inline PTX (mbarrier, TMA, wgmma), the shared-memory plan,
 // the epilogue (kernels 1-3's, and the sweeps' compile-time variants of
 // it), and the host side (tensor maps, the shared-memory opt-in).

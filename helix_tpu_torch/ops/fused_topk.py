@@ -139,7 +139,8 @@ def bucket_scores_reference(
 def bucket_plan(d: int, b: int) -> tuple[bool, int, int, int]:
     """The plan ``csrc/bucket_scores.cu`` makes for queries ``[b, d]``
     (its C entry ``hx_bucket_scores_plan``): queries resident in shared
-    memory, ring stages per consumer, stage bytes, dynamic shared
+    memory, ring stages (per consumer where resident; one ring both
+    consumers share where streamed), stage bytes, dynamic shared
     memory."""
     out = (ctypes.c_int * 4)()
     if kernels.load().hx_bucket_scores_plan(d, b, out) != 0:
@@ -147,22 +148,28 @@ def bucket_plan(d: int, b: int) -> tuple[bool, int, int, int]:
     return bool(out[0]), out[1], out[2], out[3]
 
 
+# Rows of one tile of the streamed plan's 2-block cluster: each K-chunk
+# of the queries is read once per tile and multicast to both blocks.
+CLUSTER_ROWS = 256
+
+
 def staged_bytes(n: int, d: int, b: int, resident: bool, blocks: int) -> int:
     """Bytes one launch of the kernel over ``xs [n, d]`` and ``qs [b, d]``
-    stages into shared memory by TMA: every bf16 row once, and the bf16
-    queries once per block where they are resident, or once per 64-row
-    bucket where they stream through the ring beside the rows.  The grid
-    is one block per SM, ``blocks``, or one per bucket where there are
-    fewer."""
-    buckets = n // BUCKET
-    query_loads = min(blocks, buckets) if resident else buckets
+    reads from L2 into shared memory by TMA: every bf16 row once, and the
+    bf16 queries once per block where they are resident, or once per
+    ``CLUSTER_ROWS``-row cluster tile where they stream through the ring
+    beside the rows (a multicast box counts once; ``1 + b / 256`` times
+    the rows' bytes).  The resident grid is one block per SM,
+    ``blocks``, or one per bucket where there are fewer."""
+    query_loads = (min(blocks, n // BUCKET) if resident
+                   else -(-n // CLUSTER_ROWS))
     return 2 * d * (n + query_loads * b)
 
 
 def _count_plan(n: int, d: int, b: int, device: torch.device) -> None:
-    """The tracer's counters of one launch: the bytes it stages
-    (``kernel.bucket_scores.staged_bytes``) and the rows' share of them
-    (``.row_bytes``)."""
+    """The tracer's counters of one launch: the bytes its TMA reads from
+    L2 under its plan (``kernel.bucket_scores.staged_bytes``, see
+    :func:`staged_bytes`) and the rows' share of them (``.row_bytes``)."""
     blocks = torch.cuda.get_device_properties(device).multi_processor_count
     resident = bucket_plan(d, b)[0]
     tracing.count("kernel.bucket_scores.staged_bytes",

@@ -8,8 +8,8 @@ reference (:mod:`hxbench.reference`); the fused step's core
 (``fused_candidates``) with kernel 1's plain version at B=256, where it
 re-ranks 512 bucket winners; the bytes kernel 1 stages under either of
 its plans.  On the card (``cuda``): kernel 1 bit for bit against its
-plain version at D=1536, and its staged-bytes counters in a profiled
-launch.
+plain version at D=384 to 3072 under either plan, the streamed plan's
+ring at D=1536, and its staged-bytes counters in a profiled launch.
 The module imports no JAX, so its ``cuda`` tests run on the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_wide_exact.py``.
 """
@@ -129,9 +129,11 @@ def test_fused_candidates_k100_at_d1536_b256_against_the_reference(
 @pytest.mark.parametrize("n, d, b, resident, blocks, want", [
     # deep10m-cos: 9,990,000 rows padded to 8,192, D 96 padded to 128
     (9_994_240, 128, 256, True, 132, 2 * 128 * (9_994_240 + 132 * 256)),
-    # openai5m-cos: every 64-row bucket stages its 256 queries again
-    (4_005_888, 1536, 256, False, 132, 5 * 2 * 1536 * 4_005_888),
-    (8_192, 1536, 128, False, 132, 3 * 2 * 1536 * 8_192),
+    # openai5m-cos: each 256-row cluster tile reads its 256 queries once
+    (4_005_888, 1536, 256, False, 132, 2 * 2 * 1536 * 4_005_888),
+    (8_192, 1536, 128, False, 132, 3 * 1536 * 8_192),
+    # 129 buckets: the last cluster tile holds one, and reads the queries
+    (8_256, 1536, 256, False, 132, 2 * 1536 * (8_256 + 33 * 256)),
     # fewer buckets than SMs: one block per bucket
     (640, 128, 128, True, 132, 2 * 128 * (640 + 10 * 128)),
 ])
@@ -166,25 +168,52 @@ def card() -> torch.device:
     return torch.device("cuda")
 
 
+# (d, b, n, n_valid): every streamed pair of D and B at two tiles of rows
+# less 77, and D=384 at B=128, which the plan keeps resident; then at
+# D=1536 an odd bucket count (33: the last cluster tile holds one bucket,
+# and a block of it none), rows below one cluster tile, n_valid inside
+# the last tile and n_valid = 0.
+WIDE_CASES = [
+    *[(d, b, 2 * TF.TILE, 2 * TF.TILE - 77)
+      for d in (384, 1024, 1536, 3072) for b in (128, 256)],
+    (1536, 256, 64 * 33, 64 * 33 - 5),
+    (1536, 128, 64 * 33, 64 * 32 + 7),
+    (1536, 256, 64 * 33, 0),
+    (1536, 256, 64, 64),
+    (1536, 128, 192, 100),
+    (3072, 256, 64 * 5, 64 * 4 + 1),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [256, 128])
-def test_kernel_bit_for_bit_at_d1536(b):
+@pytest.mark.parametrize("d, b, n, n_valid", WIDE_CASES)
+def test_kernel_bit_for_bit_at_d384_to_d3072(d, b, n, n_valid):
     """Small integers in bf16: every partial sum is exact in f32 whatever
     the order, so the kernel's packed winners equal the plain version's
-    bits.  Queries of 1536 columns do not fit in shared memory: the
-    streamed plan."""
+    bits.  The queries stream but at D=384, B=128, where they fit in
+    shared memory beside the rings."""
     dev = card()
-    assert TF.bucket_plan(D, b)[0] is False
-    n = 2 * TF.TILE
-    n_valid = n - 77
-    rng = np.random.default_rng(b)
-    xs = torch.from_numpy(rng.integers(-3, 4, (n, D)).astype(np.float32))
-    qs = torch.from_numpy(rng.integers(-3, 4, (b, D)).astype(np.float32))
+    assert TF.bucket_plan(d, b)[0] is (d == 384 and b == 128)
+    rng = np.random.default_rng(d * b + n + n_valid)
+    xs = torch.from_numpy(rng.integers(-3, 4, (n, d)).astype(np.float32))
+    qs = torch.from_numpy(rng.integers(-3, 4, (b, d)).astype(np.float32))
     x16 = xs.to(dev, torch.bfloat16)
     q16 = qs.to(dev, torch.bfloat16)
     got = TF.bucket_scores(x16, q16, n_valid)
     want = TF.bucket_scores_reference(x16, q16, n_valid)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_the_openai_shape_streams_through_a_ring_of_four():
+    """At D=1536, B=256 the queries stream, and the shared ring holds at
+    least 4 stages of 128 rows and a 256-query K-chunk (48 KB)."""
+    card()
+    resident, depth, stage_bytes, smem = TF.bucket_plan(D, 256)
+    assert resident is False
+    assert depth >= 4
+    assert stage_bytes == 128 * 128 + 256 * 128
+    assert depth * stage_bytes < smem <= 232_448
 
 
 @pytest.mark.cuda
@@ -220,5 +249,7 @@ def test_plan_counters_in_a_profiled_launch():
         TF.staged_bytes(n, D, b, False, sms) + \
         TF.staged_bytes(n, 128, b, True, sms)
     assert after["row_bytes"] - before["row_bytes"] == 2 * n * (D + 128)
+    # the streamed launch reads the queries once per 256 rows
+    assert TF.staged_bytes(n, D, b, False, sms) == 2 * n * D * (1 + b / 256)
     plans = {"kernel.bucket_scores.resident", "kernel.bucket_scores.streamed"}
     assert not plans & set(tracing.snapshot().counts)
