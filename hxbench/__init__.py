@@ -14,8 +14,13 @@ metric is new files and new entries, never an edit of a file here:
 - A configuration is ``configs/<name>.json``: its source, its published
   shape (``rows``, ``dim``, ``metric``, ``k``), ``reduced``, the data
   generator and its parameters (``generator``, listed under
-  ``assumed``), and the guarantees the comparison holds the answers to
-  (``guarantees``).  Add the file and an entry under ``configs`` in
+  ``assumed``), the guarantees the comparison holds the answers to
+  (``guarantees``), and the deployment (``deployment``), whose
+  ``hbm_budget_bytes`` and ``quant_candidates`` are handed to the
+  engine: the residency ladder's budget and its quantized rungs'
+  candidate floor, absent or null for the engine's default (no budget,
+  so the exact rung serves).  Standard error names the rung that
+  serves.  Add the file and an entry under ``configs`` in
   ``BENCHMARK.json`` whose ``file`` names it.
 - A traffic mix is ``traffic/<name>.json``: parameters only, read by the
   one general generator in :mod:`hxbench.loops`.  ``"entry": "engine"``

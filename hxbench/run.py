@@ -4,16 +4,21 @@
         --trace <0|1>
 
 Set-up (the rows made on the card from the seed, the engine filled
-through ``Partition.add_bulk``, the cell's shapes warmed, for HTTP cells
-the gateway and its clients started) is timed from the process's start
-as ``setup_s``; then the window runs for ``--seconds``.  With
-``--trace 1`` the window runs under ``torch.profiler`` and the line holds
-the cell's per-layer metrics instead of its end-to-end ones.  Once the
-window has closed and the device's peak memory is read, the program is
-freed and a sample of the answers is compared with the plain reference
-(:mod:`hxbench.check`).  The last line of standard output is the result;
-the numbers compared, each beside its limit, are the last lines of
-standard error and the last key of the result.
+through ``Partition.add_bulk``, the harness's own copy of the rows
+dropped, the cell's shapes warmed, for HTTP cells the gateway and its
+clients started) is timed from the process's start as ``setup_s``; then
+the window runs for ``--seconds``.  Before the window, standard error
+names the rung of the residency ladder that serves
+(``hxbench: rung <name>``) and the process's resident set
+(``hxbench: rss_bytes <n>``).  With ``--trace 1`` the window runs under
+``torch.profiler`` and the line holds the cell's per-layer metrics
+instead of its end-to-end ones.  Once the window has closed and the
+device's peak memory is read, the program is freed, the rows are made
+again from the seed (bit-equal: the rows' stream and the centres depend
+on the seed alone) and a sample of the answers is compared with the
+plain reference (:mod:`hxbench.check`).  The last line of standard
+output is the result; the numbers compared, each beside its limit, are
+the last lines of standard error and the last key of the result.
 
 Exits 2 without printing a result where there is no card or fewer cards
 than the cell asks for, and 3 where a module of ``jax``, ``jaxlib``,
@@ -49,6 +54,18 @@ def process_age_s() -> float:
     return time.clock_gettime(time.CLOCK_BOOTTIME) - started
 
 
+def resident_bytes() -> int:
+    """The process's resident set in bytes: ``VmRSS`` of
+    ``/proc/self/status``, else the resident pages of
+    ``/proc/self/statm`` times the page size."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
 def forbidden_modules() -> list[str]:
     return sorted(m for m in list(sys.modules)
                   if m.split(".", 1)[0] in FORBIDDEN)
@@ -72,9 +89,11 @@ def run_cell(bench: dict, cell: dict, config: dict, mix: dict, seed: int,
 
     record = Record(cell=cell, config=config, traffic=mix)
     spans = Spans(record, traced=trace)
-    corpus = Corpus(config["generator"], int(config["dim"]), seed, device)
-    rows = corpus.rows(int(config["rows"]))
-    engine, part = system.build(config, rows, device)
+    dim, n_rows = int(config["dim"]), int(config["rows"])
+    corpus = Corpus(config["generator"], dim, seed, device)
+    # no name holds the rows: the program copies them, and the check
+    # makes them again after the window
+    engine, part = system.build(config, corpus.rows(n_rows), device)
     if mix["entry"] == "engine":
         loop = loops.EngineLoop(part, mix, corpus, seconds)
     elif mix["entry"] == "http":
@@ -83,11 +102,13 @@ def run_cell(bench: dict, cell: dict, config: dict, mix: dict, seed: int,
     else:
         raise spec.SpecError(f"unknown entry {mix['entry']!r}")
     try:
-        system.warm(part, loop.warm_batches(), int(config["dim"]),
-                    int(mix["k"]), seed)
+        system.warm(part, loop.warm_batches(), dim, int(mix["k"]), seed)
+        print(f"hxbench: rung {system.rung(part)}", file=sys.stderr)
         if mix["entry"] == "http":
             loop.start_clients()
         setup_s = age()
+        print(f"hxbench: rss_bytes {resident_bytes()}", file=sys.stderr,
+              flush=True)
         out: dict = {}
         with traced(out, trace):
             result = loop.window(seconds, spans)
@@ -108,6 +129,7 @@ def run_cell(bench: dict, cell: dict, config: dict, mix: dict, seed: int,
         found = {"bad_answers": 1, "dist_err": float("inf"),
                  "recall_miss": 1.0}
     else:
+        rows = Corpus(config["generator"], dim, seed, device).rows(n_rows)
         found = check.numbers(answers[1], answers[2], answers[0], rows,
                               config, device)
     found["failed"] = result["failed"]

@@ -44,8 +44,10 @@ def main(argv: list[str] | None = None) -> int:
         mix["clients"] = args.clients
     device = torch.device("cuda", 0)
     corpus = Corpus(config["generator"], int(config["dim"]), args.seed, device)
-    rows = corpus.rows(int(config["rows"]))
-    engine, part = system.build(config, rows, device)
+    # the program copies the rows; nothing here checks answers, so no
+    # name holds them
+    engine, part = system.build(config, corpus.rows(int(config["rows"])),
+                                device)
     gw = system.serve(engine)
     try:
         warmed = False

@@ -17,11 +17,18 @@ ROUTE = "vsearch"
 def build(config: dict, rows: np.ndarray, device: torch.device):
     """``(engine, partition)``: the rows added under element ids
     ``1..N`` (row position + 1) through ``Partition.add_bulk``, the
-    matrix's background grow waited out."""
+    matrix's background grow waited out.  The residency ladder's knobs
+    come from the configuration's ``deployment``: ``hbm_budget_bytes``
+    and ``quant_candidates``, where absent or null the engine's default
+    (no budget: the exact rung).  ``PackedMatrix.extend`` copies the
+    rows, so the caller may free them once this returns."""
     from helix_tpu_torch.engine import Engine
 
+    deployment = config.get("deployment") or {}
     engine = Engine(device=device, metric=config["metric"],
-                    batch_window_ms=None)
+                    batch_window_ms=None,
+                    hbm_budget_bytes=deployment.get("hbm_budget_bytes"),
+                    quant_candidates=deployment.get("quant_candidates"))
     engine.execute({
         "request_type": "write", "query_name": None,
         "query": {"queries": [{"Query": {"name": "idx", "steps": [
@@ -38,6 +45,26 @@ def build(config: dict, rows: np.ndarray, device: torch.device):
     if grow is not None:
         grow.join()
     return engine, part
+
+
+def rung(part) -> str:
+    """The rung of the residency ladder that ``part`` serves, asked of
+    the partition's own predicates in ``Partition.search_many_async``'s
+    order: ``host_ivf``, ``host_exact``, ``int8.device_rerank`` or
+    ``int8.host_rerank`` (where the int8 rung re-scores its candidates),
+    ``int4``, ``sharded``, else ``exact``."""
+    if part._use_host_ivf():
+        return "host_ivf"
+    if part._use_host_exact():
+        return "host_exact"
+    if part._use_quant():
+        where = "device" if part._quant_rerank_device() else "host"
+        return f"int8.{where}_rerank"
+    if part._use_quant4():
+        return "int4"
+    if part._use_shard():
+        return "sharded"
+    return "exact"
 
 
 def warm(part, batches: list[int], dim: int, k: int, seed: int) -> None:
