@@ -32,9 +32,12 @@ Differs from the reference in:
 - ``Partition.add``: builds the matrix on the partition's device.
 - ``Partition.add_bulk``: builds the matrix on the partition's device.
 - ``Partition.search_many_async``: passes the exact search the live
-  count it keeps (``n_live``), so no dispatch counts the mask.
+  count it keeps (``n_live``), so no dispatch counts the mask, and
+  dispatches the int8 rung through ``_search_quant_async``.
 - ``Partition._search_quant``: counts the mesh's devices with
-  ``parallel.device_count``.
+  ``parallel.device_count``; passes the live count on (``n_live``).
+- ``Partition._search_quant_async``: the int8 rung's dispatch, deferred
+  where it re-ranks on the device (new in the port).
 - ``Partition._search_quant_sharded``: the mesh over the partition's
   device; the searcher's outputs come to the host as tensors.
 - ``Partition._quant4_recall_serving``: as ``_search_quant``.
@@ -251,9 +254,10 @@ class Partition:
 
     def search_many_async(self, queries: np.ndarray, k: int):
         """Dispatch a batched search; returns ``finalize() -> (ids,
-        dists)``.  The exact tier defers its D2H so a serving loop can
-        overlap dispatches (``search_packed_async``); shard/ANN tiers
-        compute eagerly and return a pre-resolved closure."""
+        dists)``.  The exact tier and the int8 rung's device re-rank
+        defer their D2H so a serving loop can overlap dispatches
+        (``search_packed_async``, :meth:`_search_quant_async`); the other
+        tiers compute eagerly and return a pre-resolved closure."""
         b = len(queries)
         if self.matrix is None or self.live_count() == 0:
             empty = (
@@ -270,9 +274,7 @@ class Partition:
             id_table = self.id_table
             return lambda: self._map_hits(dists, positions, id_table)
         if self._use_quant():
-            dists, positions = self._search_quant(queries, k)
-            id_table = self.id_table  # stable view; see exact tier below
-            return lambda: self._map_hits(dists, positions, id_table)
+            return self._search_quant_async(queries, k)
         if self._use_quant4():
             dists, positions = self._search_quant4(queries, k)
             id_table = self.id_table  # stable view; see exact tier below
@@ -381,7 +383,36 @@ class Partition:
             self.matrix, queries, k, self.live_mask, self.metric,
             k_cand_floor=self.quant_candidates,
             rerank_device=self._quant_rerank_device(),
+            n_live=self._n_live,
         )
+
+    def _search_quant_async(self, queries: np.ndarray, k: int):
+        """The int8 rung's dispatch.  With its device re-rank on one
+        device, ``QuantizedResident.search(deferred=True)`` only enqueues
+        and ``finalize()`` waits for the D2H, as the exact tier's does;
+        the host re-rank and the mesh compute eagerly.  The live count is
+        the partition's own (``_n_live``), so no dispatch counts the
+        mask."""
+        from ..ops.quant import QuantizedResident
+        from ..parallel import device_count
+
+        id_table = self.id_table  # stable view; see the exact tier
+        if device_count(self.device) > 1 or not self._quant_rerank_device():
+            dists, positions = self._search_quant(queries, k)
+            return lambda: self._map_hits(dists, positions, id_table)
+        if self.quant is None:
+            self.quant = QuantizedResident()
+        inner = self.quant.search(
+            self.matrix, queries, k, self.live_mask, self.metric,
+            k_cand_floor=self.quant_candidates, rerank_device=True,
+            n_live=self._n_live, deferred=True,
+        )
+
+        def finalize():
+            dists, positions = inner()
+            return self._map_hits(dists, positions, id_table)
+
+        return finalize
 
     def _search_quant_sharded(
         self, queries: np.ndarray, k: int

@@ -41,8 +41,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import kernels
-from .distance import _round_up, _top_k, require_fp32_matmul
+from .. import kernels, tracing
+from .distance import (
+    _copy_to_host_async,
+    _round_up,
+    _top_k,
+    require_fp32_matmul,
+)
 from .fused_topk import (
     BUCKET,
     BUCKET_KERNEL_QUERIES,
@@ -236,6 +241,74 @@ def fused_route(matrix, n_rows: int, d: int, k_cand: int, refusal) -> bool:
     )
 
 
+def _slices(matrix, have: int) -> list[tuple[int, int]]:
+    """``(start, end)`` of the slices in which ``PackedMatrix._upload``
+    moves the first ``have`` rows of ``matrix.data`` to the device."""
+    step = max(1, matrix.UPLOAD_CHUNK_BYTES // max(matrix.data[0:1].nbytes, 1))
+    return [(s, min(have, s + step)) for s in range(0, have, step)]
+
+
+def unit_codes_device(matrix, n_rows: int) -> torch.Tensor:
+    """:func:`quantize_rows_unit` of ``matrix.data[:n_rows]`` as an int8
+    ``[n_rows, dim_pad]`` tensor on the matrix's device, rows past
+    ``matrix.n`` zero.  Built there slice by slice: each slice of f32
+    rows goes up as ``PackedMatrix._upload`` moves it and becomes
+    ``clamp(round(127 x), -127, 127)`` on the device, so the host makes
+    no copy of the rows.  Bit for bit the numpy codes: the product is one
+    f32 rounding on both, and ``torch.round`` rounds half to even like
+    ``np.rint``."""
+    dst = torch.empty((n_rows, matrix.dim_pad), dtype=torch.int8,
+                      device=matrix.device)
+    have = min(n_rows, matrix.n)
+    for s, e in _slices(matrix, have):
+        x = torch.from_numpy(matrix.data[s:e]).to(matrix.device, copy=True)
+        dst[s:e] = x.mul_(127.0).round_().clamp_(-127, 127)
+    dst[have:].zero_()
+    return dst
+
+
+def row_codes_device(matrix, n_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_rows` of ``matrix.data[:n_rows]`` on the matrix's
+    device: ``(values int8 [n_rows, dim_pad], scales f32 [n_rows])``,
+    quantized on the host one upload slice at a time (the per-row scale
+    divides, which the device would turn into a multiply), rows past
+    ``matrix.n`` zero with scale 1 as :func:`quantize_rows` gives a zero
+    row."""
+    values = torch.zeros((n_rows, matrix.dim_pad), dtype=torch.int8,
+                         device=matrix.device)
+    scales = torch.ones(n_rows, dtype=torch.float32, device=matrix.device)
+    for s, e in _slices(matrix, min(n_rows, matrix.n)):
+        v, sc = quantize_rows(matrix.data[s:e])
+        values[s:e] = torch.from_numpy(v).to(matrix.device)
+        scales[s:e] = torch.from_numpy(sc).to(matrix.device)
+    return values, scales
+
+
+def _upload_queries(qs: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The prepared query batch on ``device``.  On a card it goes up
+    from pinned memory without blocking: a copy from pageable memory
+    waits until the stream has drained, which would leave the device
+    idle between a batch and the next one's launches."""
+    host = torch.from_numpy(qs)
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def _coarse_candidates(matrix, xs_i8, scales, sq_dev, qs_dev, k_cand: int,
+                       metric: str) -> torch.Tensor:
+    """The int8 coarse phase's candidates ``[B, k_cand]``: kernel 2
+    through :func:`int8_fused_coarse` where :func:`fused_route` takes the
+    shape, else :func:`int8_coarse_topk`."""
+    n = matrix.n
+    if fused_route(matrix, xs_i8.shape[0], xs_i8.shape[1], k_cand,
+                   i8_kernel_refusal):
+        return int8_fused_coarse(xs_i8, qs_dev, n, k=k_cand)[1]
+    return int8_coarse_topk(
+        xs_i8, scales, qs_dev, n, sq_dev, k=k_cand, metric=metric,
+    )[1]
+
+
 class QuantizedResident:
     """Device-resident int8 copy of a packed matrix, refreshed by
     version (same scheme as PackedMatrix's bf16 cache)."""
@@ -249,42 +322,47 @@ class QuantizedResident:
         self._rr16: tuple | None = None
 
     def arrays(self, matrix) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(int8 codes, f32 scales, f32 squared norms) on the device,
+        built there from ``matrix.data`` slice by slice
+        (:func:`unit_codes_device`, :func:`row_codes_device`)."""
         cached = self._cached
         if cached is not None and cached[0] == matrix.version:
             return cached[1], cached[2], cached[3]
         n_rows = _round_up(max(matrix.n, 1), matrix.ROW_PAD)
         if use_fused(matrix):
             n_rows = pad_rows_for_fused(matrix.n)
-        rows = _padded_rows(matrix, n_rows)
         if matrix.metric == "cosine":
-            values = quantize_rows_unit(rows)
-            scales = np.full(n_rows, GLOBAL_SCALE, np.float32)
+            xs_i8 = unit_codes_device(matrix, n_rows)
+            sc = torch.full((n_rows,), float(GLOBAL_SCALE),
+                            dtype=torch.float32, device=matrix.device)
         else:
-            values, scales = quantize_rows(rows)
-        xs_i8 = matrix._upload(values, n_rows, torch.int8)
-        sc = torch.from_numpy(scales).to(matrix.device)
+            xs_i8, sc = row_codes_device(matrix, n_rows)
         sq_dev = _sq_device(matrix, n_rows)
         self._cached = (matrix.version, xs_i8, sc, sq_dev)
         return xs_i8, sc, sq_dev
 
     def rerank_arrays(self, matrix) -> tuple[torch.Tensor, torch.Tensor]:
         """(f16 row copy, f32 squared norms) for the device re-rank,
-        version-keyed like the int8 arrays.  The f16 cast happens on the
-        host, which halves the bytes moved."""
+        version-keyed like the int8 arrays.  The f32 rows go up in
+        ``PackedMatrix._upload``'s slices and are cast on the device
+        (round to nearest even, as numpy's ``astype(np.float16)``)."""
         cached = self._rr16
         if cached is not None and cached[0] == matrix.version:
             return cached[1], cached[2]
         n_rows = _round_up(max(matrix.n, 1), matrix.ROW_PAD)
-        host16 = matrix.data[: matrix.n].astype(np.float16)
-        xs16 = matrix._upload(host16, n_rows, torch.float16)
+        xs16 = matrix._upload(matrix.data[: matrix.n], n_rows, torch.float16)
         sq = _sq_device(matrix, n_rows)
         self._rr16 = (matrix.version, xs16, sq)
         return xs16, sq
 
-    def _live_device(self, matrix, live_mask: np.ndarray,
-                     n_rows: int) -> torch.Tensor:
-        """Device uint8 live mask padded to ``n_rows`` (padding dead)."""
-        n_live = int(live_mask.sum())
+    def _live_device(self, matrix, live_mask: np.ndarray, n_rows: int,
+                     n_live: int | None = None) -> torch.Tensor:
+        """Device uint8 live mask padded to ``n_rows`` (padding dead),
+        rebuilt only when the matrix's version or the live count changes.
+        ``n_live`` is the count the caller keeps (``Partition._n_live``);
+        where it is None the mask is counted, an O(n) pass."""
+        if n_live is None:
+            n_live = int(live_mask.sum())
         cached = self._live_dev
         if (
             cached is not None
@@ -302,33 +380,34 @@ class QuantizedResident:
     def search(
         self, matrix, queries: np.ndarray, k: int, live_mask: np.ndarray,
         metric: str, k_cand_floor: int | None = None,
-        rerank_device: bool = False,
-    ) -> tuple[np.ndarray, np.ndarray]:
+        rerank_device: bool = False, *, n_live: int | None = None,
+        deferred: bool = False,
+    ):
         """Coarse int8 top-k + exact f32 re-rank (host or device).
 
         Returns (distances [B, k], positions) ascending, tombstones
         dropped via the re-rank's sentinel path.  ``k_cand_floor``
         widens the re-ranked candidate pool; ``rerank_device`` re-scores
-        against the f16 device copy instead of the host f32 matrix."""
+        against the f16 device copy instead of the host f32 matrix.
+        ``n_live`` is the live count the caller keeps, so the device
+        path never counts ``live_mask``.
+
+        With ``deferred`` and ``rerank_device`` the dispatch only
+        enqueues its device work and returns ``finalize() ->
+        (distances, positions)`` (:meth:`_search_device`), which waits
+        for the copies to the host.  The host re-rank stays eager: it
+        needs the candidates on the host before it can start."""
+        if rerank_device:
+            finalize = self._search_device(matrix, queries, k, live_mask,
+                                           metric, k_cand_floor, n_live)
+            return finalize if deferred else finalize()
         n = matrix.n
         xs_i8, scales, sq_dev = self.arrays(matrix)
         qs = matrix.prepare_queries(queries)
         qs_dev = torch.from_numpy(qs).to(matrix.device)
         k_cand = min(max(8 * k, 64, k_cand_floor or 0), n)
-        if fused_route(matrix, xs_i8.shape[0], xs_i8.shape[1], k_cand,
-                       i8_kernel_refusal):
-            _, cand = int8_fused_coarse(xs_i8, qs_dev, n, k=k_cand)
-        else:
-            _, cand = int8_coarse_topk(
-                xs_i8, scales, qs_dev, n, sq_dev, k=k_cand, metric=metric,
-            )
-        if rerank_device:
-            xs16, sq16 = self.rerank_arrays(matrix)
-            live = self._live_device(matrix, live_mask, int(xs16.shape[0]))
-            dists, pos = device_rerank_topk(
-                xs16, sq16, qs_dev, cand, live, n, k=k, metric=metric,
-            )
-            return dists.cpu().numpy(), pos.cpu().numpy().astype(np.int64)
+        cand = _coarse_candidates(matrix, xs_i8, scales, sq_dev, qs_dev,
+                                  k_cand, metric)
         from ..native import rerank as native_rerank
 
         cand = cand.cpu().numpy().astype(np.int64)
@@ -338,6 +417,54 @@ class QuantizedResident:
         return native_rerank(
             matrix.data[:n], matrix.sq_norms[:n], qs, cand, k, metric
         )
+
+    def _search_device(self, matrix, queries: np.ndarray, k: int,
+                       live_mask: np.ndarray, metric: str,
+                       k_cand_floor: int | None, n_live: int | None):
+        """The device re-rank path, dispatched: query upload, the coarse
+        phase, the pool's selection and :func:`device_rerank_topk`
+        enqueued, then the pinned copies of ``(distances, positions)``
+        behind an event.  Nothing in it waits for the device, so a
+        dispatch queues behind the batch in flight.  Returns
+        ``finalize()``, which waits on the event.
+
+        Spans (:mod:`..tracing`), under the exact tier's names:
+        ``engine.search`` over the dispatch, its children
+        ``engine.live_count`` (the device mask, rebuilt only when the
+        version or the live count changes), ``engine.h2d`` and
+        ``kernel.enqueue`` (the coarse phase, the selection and the
+        re-rank), and ``engine.d2h_wait`` in ``finalize()`` under the
+        dispatch's ``engine.search``.  The counter
+        ``engine.quant_candidates`` adds the candidates re-ranked (batch
+        times pool)."""
+        with tracing.span("engine.search") as search:
+            n = matrix.n
+            xs_i8, scales, sq_dev = self.arrays(matrix)
+            xs16, sq16 = self.rerank_arrays(matrix)
+            qs = matrix.prepare_queries(queries)
+            k_cand = min(max(8 * k, 64, k_cand_floor or 0), n)
+            with tracing.span("engine.live_count"):
+                live = self._live_device(matrix, live_mask,
+                                         int(xs16.shape[0]), n_live)
+            with tracing.span("engine.h2d"):
+                qs_dev = _upload_queries(qs, matrix.device)
+            with tracing.span("kernel.enqueue"):
+                cand = _coarse_candidates(matrix, xs_i8, scales, sq_dev,
+                                          qs_dev, k_cand, metric)
+                dists, pos = device_rerank_topk(
+                    xs16, sq16, qs_dev, cand, live, n, k=k, metric=metric,
+                )
+            tracing.count("engine.quant_candidates", qs.shape[0] * k_cand)
+            (dists_host, pos_host), copied = _copy_to_host_async(dists, pos)
+        search_id = search.id
+
+        def finalize() -> tuple[np.ndarray, np.ndarray]:
+            with tracing.span("engine.d2h_wait", parent=search_id):
+                if copied is not None:
+                    copied.synchronize()
+            return dists_host.numpy(), pos_host.numpy().astype(np.int64)
+
+        return finalize
 
 
 class ShardedInt8Search:
