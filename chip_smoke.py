@@ -45,12 +45,23 @@ Phases, each failing the run on a bad check:
    their plain versions at the main shape on random unit rows quantized
    by the port's own quantizers, and at B=128 and D=768 (queries streamed
    at B=256, resident at B=128) on codes drawn on the card, with n_valid
-   in mid-bucket: the outputs must be equal bit for bit, a bucket holding
-   a zero row must flush to a zero winner, and each wrapper must raise on
-   a shape its refusal names (D=64, B=192).  Each kernel's plan is
+   in mid-bucket; kernel 2 also at D=256 and D=384, the last width whose
+   sums take the exact add and the first that takes the rounded
+   conversion: the outputs must be equal bit for bit, a bucket holding
+   a zero row must flush to a zero winner, kernel 2's made ties (two
+   rows of a bucket whose sums differ only in the bits the pack
+   overwrites, with positive and with negative scores) must take the
+   rows the plain version takes, and each wrapper must raise on a shape
+   its refusal names (D=64, B=192).  Kernel 2's counter
+   ``kernel.i8_bucket_scores.exact_add`` must count a profiled launch at
+   D=128 and D=256 and none at D=384 and D=768.  Each kernel's plan is
    printed; the kernel, its plain version and the product-only
    ``torch._int_mm`` (on the unpacked codes for int4) are timed the same
-   way, at B=256 and B=128.
+   way, at B=256 and B=128.  Then kernel 2 at the int8 cell's shape
+   (``i8_cell_phase``: 34,004,992 x 128 unit rows quantized on the card,
+   B=256, n_valid 34,000,000, the made ties and a zero row), bit for bit
+   against its plain version run in 1M-row slices, and timed beside its
+   bound.
 4. Bench (``bench_phase``): ``python bench_torch.py`` in a child process
    at its defaults (1M x 128 cosine, B=256, k=10, 128 rounds in one CUDA
    graph, the graph reads and the gateway on; the CPU HNSW baseline
@@ -818,16 +829,88 @@ def kernel_plan(entry: str, d: int, b: int) -> str:
 # The shapes kernels 2 and 3 are held at besides the main one (D=DIM,
 # B=BATCH): B=128 single reads, and D=768, whose queries stream through
 # the rings at B=256 and stay resident at B=128; n_valid in mid-bucket.
+# Kernel 2 also at D=256, the widest its sums turn into f32 by the exact
+# add, and D=384, the first past it (I8_SHAPES).
 QUANT_SHAPES = ((DIM, 128), (768, BATCH), (768, 128))
+I8_SHAPES = QUANT_SHAPES + ((256, BATCH), (384, BATCH))
 QUANT_N_VALID = N_ROWS - 37
+# The int8 cell's shape (hxbench's deep100m-cos.int8): 34,000,000 rows of
+# int8 codes stored at D=128, padded to whole tiles, B=256.
+CELL_ROWS = 34_000_000
+# Rows of one call of the plain version at the cell's shape: its [rows,
+# B] int32 dots and their f32 copies stay within a few GB.
+CELL_CHUNK = 1 << 20
+# Kernel 2's made ties (made_ties): query row 1 against buckets 1
+# (positive scores) and 2 (negative) scores two sums whose f32 bits
+# differ only in the 6 low bits the pack overwrites, the higher sum in
+# the lower row TIE_ROWS[0]; against buckets 3 and 4, 64 equal sums, in
+# [0, 2^18) and below 0.  The packed max takes the higher row among
+# positive scores and the lower among negative ones (TIE_WINNERS, buckets
+# 1 to 4), where an integer or an unpacked float max of the sums takes
+# the other row of buckets 1 and 2.
+TIE_ROWS = (9, 40)
+TIE_WINNERS = (40, 9, 63, 0)
+
+
+def made_ties(xs: torch.Tensor, q: torch.Tensor) -> None:
+    """Write kernel 2's made ties into codes ``xs [N, D]`` (buckets 1 and
+    2) and queries ``q [B, D]`` (row 1): the query is 127 but its last
+    column, 1; the tie rows are 127 but column 0 (126), so their first
+    D - 1 columns sum to 127 (D - 1) - 1, a multiple of 128, and their
+    last columns are 5 and 2.  The sums 127 * that + 5 and + 2 lie at or
+    above 2^20, where the pack drops at least their 3 low bits.  Bucket
+    1's other rows are zero; bucket 2's rows are negated and its other
+    rows -127, below both.  Buckets 3 and 4 hold 64 rows of 1 and of
+    -1."""
+    d = xs.shape[1]
+    tie = torch.full((2, d), 127, dtype=torch.int8)
+    tie[:, 0] = 126
+    tie[:, -1] = torch.tensor([5, 2], dtype=torch.int8)
+    query = torch.full((d,), 127, dtype=torch.int8)
+    query[-1] = 1
+    pos = torch.zeros((64, d), dtype=torch.int8)
+    neg = torch.full((64, d), -127, dtype=torch.int8)
+    for i, row in enumerate(TIE_ROWS):
+        pos[row] = tie[i]
+        neg[row] = -tie[i]
+    ones = torch.ones((64, d), dtype=torch.int8)
+    xs[64:320] = torch.cat([pos, neg, ones, -ones]).to(xs.device)
+    q[1] = query.to(q.device)
+
+
+def check_ties(name: str, want: torch.Tensor, d: int) -> None:
+    """The plain version's winners of the made ties at width ``d`` (query
+    row 1 of buckets 1 to 4) carry TIE_WINNERS in their index bits, and
+    the ties of buckets 1 and 2 are ones of high bits: the two sums
+    differ, their packed bits do not."""
+    base = 127 * (127 * (d - 1) - 1)
+    hi, lo = np.array([base + 5, base + 2], np.float32).view(np.int32) & ~63
+    check(hi == lo, f"{name}: the made sums differ above the packed bits")
+    got = [int(want[b, 1].view(torch.int32)) & 63 for b in (1, 2, 3, 4)]
+    check(got == list(TIE_WINNERS),
+          f"{name}: the made ties took rows {got}, not {TIE_WINNERS}")
+
+
+def chunked_reference(xs: torch.Tensor, q: torch.Tensor,
+                      n_valid: int) -> torch.Tensor:
+    """``i8_bucket_scores_reference`` over ``xs`` in CELL_CHUNK-row
+    slices (buckets are independent, and each slice starts on a bucket),
+    so the cell's [34M, 256] dots never exist at once."""
+    from helix_tpu_torch.ops import quant as Q
+
+    return torch.cat([
+        Q.i8_bucket_scores_reference(xs[lo:lo + CELL_CHUNK], q, n_valid - lo)
+        for lo in range(0, xs.shape[0], CELL_CHUNK)])
 
 
 def quant_kernel_phase(device: torch.device) -> dict:
     """Kernels 2 and 3 at the main path's shapes, on unit rows quantized
     by the port's quantizers (int8 global scale; scale-sorted int4), and
-    at QUANT_SHAPES on codes drawn on the card: bit for bit against the
-    plain versions, the zero-row flush, the wrappers' refusals, and the
-    times of the kernels, their plain versions and ``torch._int_mm``."""
+    at QUANT_SHAPES (kernel 2: I8_SHAPES) on codes drawn on the card: bit
+    for bit against the plain versions, the zero-row flush, kernel 2's
+    made ties (``made_ties``) and its exact-add counter, the wrappers'
+    refusals, and the times of the kernels, their plain versions and
+    ``torch._int_mm``."""
     from helix_tpu_torch.ops import fused_topk as F
     from helix_tpu_torch.ops import quant as Q
     from helix_tpu_torch.ops import quant4 as Q4
@@ -858,6 +941,7 @@ def quant_kernel_phase(device: torch.device) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     del rows
     xi = torch.from_numpy(xi).to(device)
+    made_ties(xi, q_i8[0])
     packed = torch.from_numpy(packed).to(device)
     bsc = torch.from_numpy(bsc).to(device)
 
@@ -865,7 +949,7 @@ def quant_kernel_phase(device: torch.device) -> dict:
     # nibbles in [-7, 7], positive bucket scales).
     gen = torch.Generator(device=device).manual_seed(12)
     wide = {}
-    for d in sorted({d for d, _ in QUANT_SHAPES}):
+    for d in sorted({d for d, _ in I8_SHAPES}):
         codes = torch.randint(-127, 128, (n, d), generator=gen,
                               device=device, dtype=torch.int8)
         lo, hi = (torch.randint(-7, 8, (n, d // 2), generator=gen,
@@ -881,42 +965,48 @@ def quant_kernel_phase(device: torch.device) -> dict:
                 -127, 128, (BATCH, d), generator=gen, device=device,
                 dtype=torch.int8),
         }
+        made_ties(wide[d]["xs"], wide[d]["q"])
         del codes, lo, hi
 
     codes4 = Q4.unpack_int4(packed)  # the library call's int8 operand
     buckets = n // F.BUCKET
     ops = 2.0 * n * DIM * BATCH
     out = {}
-    for name, kernel, plain, entry, operands, library, in_bytes in (
+    for name, kernel, plain, entry, operands, library, in_bytes, shapes in (
         ("i8_bucket_scores", Q.i8_bucket_scores,
          Q.i8_bucket_scores_reference, "hx_i8_bucket_scores_plan",
          lambda w, q, n_valid: (w["xs"], q, n_valid),
          lambda xs, q, n_valid: torch._int_mm(xs, q.t()),
-         lambda b: n * DIM + b * DIM),
+         lambda b: n * DIM + b * DIM, I8_SHAPES),
         ("i4_bucket_scores", Q4.i4_bucket_scores,
          Q4.i4_bucket_scores_reference, "hx_i4_bucket_scores_plan",
          lambda w, q, n_valid: (w["packed"], w["bsc"], q, n_valid),
          lambda p, s, q, n_valid: torch._int_mm(codes4, q.t()),
-         lambda b: n * DIM // 2 + buckets * 4 + b * DIM),
+         lambda b: n * DIM // 2 + buckets * 4 + b * DIM, QUANT_SHAPES),
     ):
-        for d, b in ((DIM, BATCH),) + QUANT_SHAPES:
+        ties = kernel is Q.i8_bucket_scores
+        for d, b in ((DIM, BATCH),) + shapes:
             log(f"kernel {name} plan {kernel_plan(entry, d, b)}")
         at_main = wide[DIM]
         got = kernel(*operands(at_main, q_i8[0], N_ROWS))
         want = plain(*operands(at_main, q_i8[0], N_ROWS))
         err = check_bitwise(name, got, want)
+        if ties:
+            check_ties(name, want, DIM)
         check(int(got[0, 0].view(torch.int32)) == 0,
               f"{name}: the zero-row bucket's winner was not flushed")
         for q in q_i8[1:]:
             err = max(err, check_bitwise(name,
                                          kernel(*operands(at_main, q, N_ROWS)),
                                          plain(*operands(at_main, q, N_ROWS))))
-        for d, b in QUANT_SHAPES:
+        for d, b in shapes:
             w = wide[d]
             args = operands(w, w["q"][:b].contiguous(), QUANT_N_VALID)
             got = kernel(*args)
-            err = max(err, check_bitwise(f"{name} D={d} B={b}", got,
-                                         plain(*args)))
+            want = plain(*args)
+            err = max(err, check_bitwise(f"{name} D={d} B={b}", got, want))
+            if ties:
+                check_ties(f"{name} D={d} B={b}", want, d)
             check(float(got[QUANT_N_VALID // F.BUCKET].min()) > -1e37,
                   f"{name} D={d} B={b}: the part-live bucket lost its rows")
         del got, want
@@ -945,9 +1035,10 @@ def quant_kernel_phase(device: torch.device) -> dict:
             f"{t['library']:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
             f"{b_ms / t['kernel']:.1%} of the bound), bitwise equal at B="
             f"{BATCH} D={DIM} and at "
-            f"{', '.join(f'B={b} D={d}' for d, b in QUANT_SHAPES)} with "
+            f"{', '.join(f'B={b} D={d}' for d, b in shapes)} with "
             f"n_valid={QUANT_N_VALID}, max |err| {err:.3g}, zero-row bucket "
-            "flushed, D=64 and B=192 refused")
+            f"flushed, {'made ties held, ' if ties else ''}D=64 and B=192 "
+            "refused")
         t128 = time_sides({"kernel": kernel, "library": library},
                           [operands(at_main, q[:128].contiguous(), N_ROWS)
                            for q in q_i8])
@@ -960,7 +1051,98 @@ def quant_kernel_phase(device: torch.device) -> dict:
                      "plain_ms": t["plain"], "library_ms": t["library"],
                      "bound_ms": b_ms, "bound_by": b_by,
                      "ms_b128": t128["kernel"]}
+    if device.type == "cuda":
+        out["i8_bucket_scores"]["exact_add"] = exact_add_counts(
+            {d: wide[d] for d in (DIM, 256, 384, 768)})
     return out
+
+
+def exact_add_counts(by_d: dict) -> dict:
+    """One launch of kernel 2 at each width of ``by_d`` (D -> codes and
+    queries, B=BATCH) under a profiler: the tracer's counter
+    ``kernel.i8_bucket_scores.exact_add`` must count it at D <= 256 and
+    not above."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from helix_tpu_torch import tracing
+    from helix_tpu_torch.ops import quant as Q
+
+    name = "kernel.i8_bucket_scores.exact_add"
+    counts = {}
+    for d, w in by_d.items():
+        before = tracing.snapshot().counts.get(name, 0)
+        with profile(activities=[ProfilerActivity.CPU]):
+            Q.i8_bucket_scores(w["xs"], w["q"], QUANT_N_VALID)
+        counts[d] = tracing.snapshot().counts.get(name, 0) - before
+        check(counts[d] == (1 if d <= Q.I8_EXACT_ADD_MAX_D else 0),
+              f"{name}: {counts[d]} at D={d}")
+    torch.cuda.synchronize()
+    log(f"kernel i8_bucket_scores {name} per launch by D: "
+        f"{json.dumps(counts)}")
+    return counts
+
+
+def i8_cell_phase(device: torch.device, n_valid: int = CELL_ROWS) -> dict:
+    """Kernel 2 at the int8 cell's shape: unit rows of width 96 quantized
+    on the card as the cell's are, stored zero-padded to DIM and padded to
+    whole tiles, B=BATCH; bit for bit against the plain version (in
+    CELL_CHUNK-row slices) on a batch with the made ties and the zero-row
+    flush of query 0 (its last K step is not zero) and on a batch of the
+    cell's queries (the kernel skips their zero last K step), then timed
+    over KERNEL_RUNS batches of the cell's queries beside its bound at the
+    stored D and at the published D=96 (the roofline reader's)."""
+    from helix_tpu_torch.ops import fused_topk as F
+    from helix_tpu_torch.ops import quant as Q
+
+    n = F.pad_rows_for_fused(n_valid)
+    gen = torch.Generator(device=device).manual_seed(13)
+    xs = torch.empty((n, DIM), dtype=torch.int8, device=device)
+    for lo in range(0, n, CELL_CHUNK):
+        rows = torch.randn((min(CELL_CHUNK, n - lo), DIM), generator=gen,
+                           device=device)
+        rows[:, 96:] = 0
+        rows /= rows.norm(dim=1, keepdim=True)
+        xs[lo:lo + rows.shape[0]] = torch.clamp(
+            torch.round(rows * 127.0), -127, 127).to(torch.int8)
+        del rows
+    qs = []
+    for _ in range(KERNEL_RUNS):
+        q = torch.randn((BATCH, DIM), generator=gen, device=device)
+        q[:, 96:] = 0
+        qs.append(Q._quantize_queries(q / q.norm(dim=1, keepdim=True))[0])
+    ties = qs[0].clone()
+    made_ties(xs, ties)
+    xs[: F.BUCKET] = (-torch.sign(ties[0].float()) * 100).to(torch.int8)
+    xs[5] = 0
+    err = 0.0
+    for i, q in enumerate((ties, qs[1])):
+        got = Q.i8_bucket_scores(xs, q, n_valid)
+        want = chunked_reference(xs, q, n_valid)
+        err = max(err, check_bitwise(f"i8_bucket_scores cell N={n}", got,
+                                     want))
+        if i == 0:
+            check_ties("i8_bucket_scores cell", want, DIM)
+            check(int(got[0, 0].view(torch.int32)) == 0,
+                  "i8_bucket_scores cell: the zero-row bucket's winner was "
+                  "not flushed")
+        del got, want
+    t = time_sides({"kernel": Q.i8_bucket_scores},
+                   [(xs, q, n_valid) for q in qs])
+    buckets = n // F.BUCKET
+    b_ms, b_by = bound(n * DIM + BATCH * DIM + buckets * BATCH * 4,
+                       2.0 * n * DIM * BATCH, PEAK_INT8_PER_S)
+    pub_ms, _ = bound(n_valid * 96 + BATCH * 96
+                      + -(-n_valid // F.BUCKET) * BATCH * 4,
+                      2.0 * n_valid * 96 * BATCH, PEAK_INT8_PER_S)
+    log(f"kernel i8_bucket_scores cell N={n} D={DIM} B={BATCH} n_valid="
+        f"{n_valid}: {t['kernel']:.4f} ms (bound {b_ms:.4f} ms by {b_by}: "
+        f"{b_ms / t['kernel']:.1%}; at the published D=96 {pub_ms:.4f} ms: "
+        f"{pub_ms / t['kernel']:.1%}), bitwise equal on the made ties' "
+        f"batch and a batch of the cell's queries, made ties held, zero-row "
+        f"bucket flushed")
+    del xs
+    return {"cell_ms": t["kernel"], "cell_bound_ms": b_ms,
+            "cell_bound_d96_ms": pub_ms, "cell_max_abs_err": err}
 
 
 # ---------------------------------------------------------------- sweeps
@@ -3891,6 +4073,10 @@ def run_phases() -> int:
     kern = {"bucket_scores": timed("kernel", kernel_phase, device)}
     kern["select_topk"] = timed("select", select_phase, device)
     kern.update(timed("quant kernels", quant_kernel_phase, device))
+    kern["i8_bucket_scores"].update(timed("i8 cell shape", i8_cell_phase,
+                                          device))
+    gc.collect()
+    torch.cuda.empty_cache()
     bench = timed("bench", bench_phase, device)
     ladder_bench = timed("ladder bench", ladder_bench_phase, device)
     # The sweep library builds in the background during the engine

@@ -10,7 +10,9 @@
 // take alternate buckets and issue wgmma with M = 64 = one bucket against
 // the queries; the packed bucket max is taken in registers.  (Kernel 1's
 // streamed plan, bucket_scores.cu's own kernel for wide D, shares one
-// ring between its consumers across a 2-block cluster instead.)  This header
+// ring between its consumers across a 2-block cluster instead; kernel 2
+// puts the queries on M and the bucket's rows on N, with its own
+// products and epilogue in i8_bucket_scores.cu.)  This header
 // holds the inline PTX (mbarrier, TMA, wgmma), the shared-memory plan,
 // the epilogue (kernels 1-3's, and the sweeps' compile-time variants of
 // it), and the host side (tensor maps, the shared-memory opt-in).
@@ -162,6 +164,60 @@ template <int R>
 __device__ __forceinline__ void fence_acc(int (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// D[64 x 64] (+)= A[64 x 32] * B[64 x 32]^T, s8 in, exact s32 sums
+// (kernel 2: 64 queries against one bucket's 64 rows).
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t a,
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The same with A from registers: a[i] holds 4 bytes of K of one row (a
+// warp's rows r = lane / 4 and r + 8 of its 16, bytes 4 (lane % 4) + {0,
+// 16}: a[0] row r, a[1] row r + 8, a[2] and a[3] those rows 16 bytes on).
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32],
+                                                      const int (&a)[4],
+                                                      uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
 // D[64 x 128] (+)= A[64 x 32] * B[128 x 32]^T, s8 in, exact s32 sums.

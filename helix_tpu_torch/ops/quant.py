@@ -63,6 +63,9 @@ from .fused_topk import (
 # csrc/i4_bucket_scores.cu: one 128-byte swizzle row of int8 (for int4,
 # 64 packed bytes unpacked).
 I8_KERNEL_DEPTH = 128
+# The widest D at which csrc/i8_bucket_scores.cu turns its int32 sums
+# into f32 by the exact add (its EXACT_ADD_MAX_D): 128 * 128 * D <= 2^22.
+I8_EXACT_ADD_MAX_D = 256
 
 
 
@@ -596,7 +599,10 @@ def i8_bucket_scores(
     ``i8_bucket_scores.launches``; CPU tensors run
     :func:`i8_bucket_scores_reference` at any shape.  On other devices, a
     shape :func:`i8_kernel_refusal` names and anything else the kernel
-    does not take raise."""
+    does not take raise.  While a profiler records, a launch (not a
+    captured node) whose sums the kernel converts by the exact add
+    (D <= :data:`I8_EXACT_ADD_MAX_D`) adds one to the tracer's counter
+    ``kernel.i8_bucket_scores.exact_add``."""
     if xs_i8.device.type == "cpu" and q_i8.device.type == "cpu":
         return i8_bucket_scores_reference(xs_i8, q_i8, n_valid)
     if xs_i8.dim() != 2 or q_i8.dim() != 2 or xs_i8.shape[1] != q_i8.shape[1]:
@@ -616,11 +622,13 @@ def i8_bucket_scores(
     n_valid = max(0, min(int(n_valid), n))
     out = torch.empty((n // BUCKET, b), dtype=torch.float32,
                       device=xs_i8.device)
-    kernels.launch(
+    captured = kernels.launch(
         i8_bucket_scores, kernels.load().hx_i8_bucket_scores,
         xs_i8.get_device(), xs_i8.data_ptr(), q_i8.data_ptr(),
         out.data_ptr(), n, d, b, n_valid,
     )
+    if not captured and d <= I8_EXACT_ADD_MAX_D:
+        tracing.count("kernel.i8_bucket_scores.exact_add")
     return out
 
 

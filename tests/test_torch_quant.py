@@ -16,6 +16,8 @@ Tolerances:
   after the f16 device re-rank (f32 sums in another order).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -115,14 +117,52 @@ def jax_i8_bucket_scores(xi, q_i8, n_valid):
         jnp.asarray(xi), jnp.asarray(q_i8), jnp.int32(n_valid)))
 
 
-@pytest.mark.parametrize("n,n_valid,d,seed", [
-    (16384, 16384 - 300, 128, 0),
-    (24576, 24576 - 8192 - 64, 64, 1),
+# Rows of bucket 1 (positive scores) and bucket 2 (negative) whose sums
+# for query 1 share every f32 bit the pack keeps, and buckets 3 and 4 of
+# 64 equal sums, positive and negative (made_ties); the rows the packed
+# max takes: the higher among positive scores, the lower among negative
+# ones, where an integer max (or an unpacked float max) of the sums takes
+# the other row of buckets 1 and 2.
+TIE_ROWS = (9, 40)
+TIE_WINNERS = (40, 9, 63, 0)
+
+
+def made_ties(xi, q_i8):
+    """chip_smoke.py's made ties, in numpy: query 1 is 127 but its last
+    column (1); the tie rows are 127 but column 0 (126) and their last
+    column (5, then 2), so their sums are 127 (127 (D - 1) - 1) + 5 and
+    + 2, at or above 2^20 where the pack drops at least 3 low bits;
+    bucket 1's other rows are 0, bucket 2's rows are negated and its
+    other rows -127; buckets 3 and 4 hold 64 rows of 1 and of -1."""
+    d = xi.shape[1]
+    tie = np.full((2, d), 127, np.int8)
+    tie[:, 0] = 126
+    tie[:, -1] = (5, 2)
+    pos = np.zeros((64, d), np.int8)
+    neg = np.full((64, d), -127, np.int8)
+    pos[list(TIE_ROWS)] = tie
+    neg[list(TIE_ROWS)] = -tie
+    ones = np.ones((64, d), np.int8)
+    xi[64:320] = np.concatenate([pos, neg, ones, -ones])
+    q_i8[1] = 127
+    q_i8[1, -1] = 1
+
+
+@pytest.mark.parametrize("n,n_valid,d,seed,ties", [
+    pytest.param(16384, 16384 - 300, 128, 0, False, id="16384-16084-128-0"),
+    pytest.param(24576, 24576 - 8192 - 64, 64, 1, False,
+                 id="24576-16320-64-1"),
+    pytest.param(16384, 16384 - 300, 128, 2, True, id="ties-128"),
+    pytest.param(16384, 16384 - 300, 256, 3, True, id="ties-256"),
+    pytest.param(16384, 16384 - 300, 384, 4, True, id="ties-384"),
 ])
 def test_i8_bucket_scores_reference_matches_pallas_bitwise(n, n_valid, d,
-                                                           seed):
+                                                           seed, ties):
     xi = TQ.quantize_rows_unit(unit_rows(n, d, seed))
     q_i8, _ = jax_q(unit_rows(128, d, seed + 10))
+    if ties:
+        q_i8 = q_i8.copy()
+        made_ties(xi, q_i8)
     want = jax_i8_bucket_scores(xi, q_i8, n_valid)
     got = TQ.i8_bucket_scores(torch.from_numpy(xi), torch.from_numpy(q_i8),
                               n_valid).numpy()
@@ -130,6 +170,15 @@ def test_i8_bucket_scores_reference_matches_pallas_bitwise(n, n_valid, d,
     np.testing.assert_array_equal(bits(got), bits(want))
     # buckets past the masked tail carry the sentinel on both sides
     assert np.all(got[(n_valid + 63) // 64:] < -1e38)
+    if ties:
+        sums = xi[64:192].astype(np.int64) @ q_i8[1].astype(np.int64)
+        for b, sign in ((0, 1), (1, -1)):
+            a, c = sums[64 * b + np.array(TIE_ROWS)]
+            # row 9's sum is the larger in magnitude
+            assert a != c and sign * a > sign * c
+            assert bits(float(a)) & ~63 == bits(float(c)) & ~63
+        assert [bits(want)[b, 1] & 63 for b in (1, 2, 3, 4)] == \
+            list(TIE_WINNERS)
 
 
 def test_i8_bucket_scores_flushes_a_zero_row_like_the_reference():
@@ -159,6 +208,67 @@ def test_i8_bucket_scores_refuses_other_devices():
     q = torch.empty((128, 128), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         TQ.i8_bucket_scores(xs, q, 8192)
+
+
+def test_the_exact_add_is_the_f32_of_every_sum_within_2_22():
+    """Kernel 2's int -> f32 step up to D = 256: bits(1.5 * 2^23) + v,
+    read as f32, less 1.5 * 2^23, is f32(v) bit for bit for every
+    |v| <= 2^22, and not one past it.  Any int8 codes keep |v| within
+    128 * 128 * D <= 2^22 at D <= 256; at D = 384 codes of +-127 do not,
+    so the kernel converts there with the rounded conversion."""
+    v = np.arange(-(1 << 22), (1 << 22) + 1, dtype=np.int32)
+    got = (v + np.int32(0x4B400000)).view(np.float32) - np.float32(12582912)
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  v.astype(np.float32).view(np.int32))
+    past = np.int32((1 << 22) + 1)
+    assert (past + np.int32(0x4B400000)).view(np.float32) \
+        - np.float32(12582912) != np.float32(past)
+    assert 128 * 128 * TQ.I8_EXACT_ADD_MAX_D <= 1 << 22
+    assert 127 * 127 * 384 > 1 << 22
+
+
+def test_the_exact_add_bound_is_the_kernels():
+    from helix_tpu_torch import kernels
+
+    src = (kernels._HERE / "csrc" / "i8_bucket_scores.cu").read_text()
+    found = re.search(r"constexpr int EXACT_ADD_MAX_D = (\d+);", src)
+    assert found and int(found.group(1)) == TQ.I8_EXACT_ADD_MAX_D
+
+
+@pytest.mark.parametrize("d, counted", [(128, 1), (256, 1), (384, 0),
+                                        (768, 0)])
+def test_a_profiled_launch_counts_the_exact_add_up_to_d256(monkeypatch, d,
+                                                           counted):
+    """The wrapper's counter ``kernel.i8_bucket_scores.exact_add``: one
+    per launch at D <= 256 while a profiler records, none above, none
+    for a captured node and none without a profiler (the C entry is
+    replaced by a stub that launches nothing)."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from helix_tpu_torch import kernels, tracing
+
+    captured = []
+    monkeypatch.setattr(kernels, "check_operands", lambda *a: None)
+    monkeypatch.setattr(kernels, "load", lambda: SimpleNamespace(
+        hx_i8_bucket_scores=None))
+    monkeypatch.setattr(kernels, "launch", lambda *a: bool(captured))
+    xs = torch.empty((8192, d), dtype=torch.int8, device="meta")
+    q = torch.empty((256, d), dtype=torch.int8, device="meta")
+    name = "kernel.i8_bucket_scores.exact_add"
+
+    def count():
+        return tracing.snapshot().counts.get(name, 0)
+
+    before = count()
+    TQ.i8_bucket_scores(xs, q, 8192)
+    assert count() == before
+    with profile(activities=[ProfilerActivity.CPU]):
+        TQ.i8_bucket_scores(xs, q, 8192)
+        captured.append(True)
+        TQ.i8_bucket_scores(xs, q, 8192)
+    assert count() - before == counted
 
 
 def boundary_ids(ids, vals_t, k):
