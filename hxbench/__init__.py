@@ -25,7 +25,13 @@ metric is new files and new entries, never an edit of a file here:
 - A traffic mix is ``traffic/<name>.json``: parameters only, read by the
   one general generator in :mod:`hxbench.loops`.  ``"entry": "engine"``
   is a closed loop of batches through ``Partition.search_many_async``
-  (``batch``, ``in_flight``, ``k``, ``pool_qps``); ``"entry": "http"``
+  (``batch``, ``in_flight``, ``k``, ``pool_qps``, and for a write mix
+  ``insert_share``: inserts as a share of all operations, each a
+  ``Partition.add`` of a row from the seed's insert stream, and
+  ``latest_share``: the share of each batch's queries that search the
+  newest acknowledged rows with their own rows; every answer is held to
+  the rows acknowledged before its dispatch, and the newest inserts are
+  read back after the window); ``"entry": "http"``
   is an open loop of single-query requests through the native gateway
   (``rate_per_s``, ``clients``, ``connections``, ``k``).  A cell's own
   values, such as the rate a sweep found for one configuration, go in

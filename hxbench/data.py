@@ -9,10 +9,11 @@ scaled, rounded and clipped to ``[0, max]``, as SIFT's non-negative
 integers below 256 are.  Rows are not normalised: for an angular
 configuration the program and the reference each normalise them.
 
-Rows, queries and centres come from three streams of one seed, each with
-a generator of its own that later draws continue, so a query pool of any
-size leaves the rows unchanged, a pool can grow without a repeat, and
-every seed gives the same shapes."""
+Rows, queries, centres and the rows a write mix inserts come from four
+streams of one seed, each with a generator of its own that later draws
+continue, so a query or insert pool of any size leaves the rows
+unchanged, a pool can grow without a repeat, and every seed gives the
+same shapes."""
 
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ def stream_seed(seed: int, stream: int) -> int:
 
 
 class Corpus:
-    ROWS, QUERIES, CENTERS = 1, 2, 3
+    ROWS, QUERIES, CENTERS, INSERTS = 1, 2, 3, 7
 
     def __init__(self, generator: dict, dim: int, seed: int,
                  device: torch.device):
@@ -76,3 +77,9 @@ class Corpus:
         """The next ``n`` queries of the seed's query stream, ``[n, dim]``
         float32 on the host, drawn near the same centres as the rows."""
         return self._draw(n, self.QUERIES)
+
+    def inserts(self, n: int) -> np.ndarray:
+        """The next ``n`` rows of the seed's insert stream, ``[n, dim]``
+        float32 on the host, drawn near the same centres as the rows: the
+        rows a write mix adds (:class:`hxbench.loops.EngineLoop`)."""
+        return self._draw(n, self.INSERTS)

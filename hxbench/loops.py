@@ -5,7 +5,29 @@ parameters (``traffic/<mix>.json``, then ``cells/<cell>.json``).
 ``search_many_async`` / ``finalize()``, ``in_flight`` batches
 outstanding: batch i+1 is dispatched before batch i is finalized, the
 pipelining the gateway's vbatch loop uses.  Latency of a batch: from its
-dispatch call to the return of its ``finalize()``.
+dispatch call to the return of its ``finalize()``.  ``insert_share``
+(inserts as a share of all operations; absent or 0 for none) makes it a
+write mix: after each dispatch the loop inserts until its inserts reach
+``insert_share / (1 - insert_share)`` times the queries dispatched (one
+per 19 at YCSB D's 0.05), each one ``Partition.add`` on the loop's
+thread while the batches in flight stay outstanding, timed as the span
+``engine.insert``.  The rows come from the seed's insert stream
+(:meth:`hxbench.data.Corpus.inserts`), drawn before the window in
+proportion to the query pool; their ids continue from the built rows'
+(row position + 1).  The stream's first row is inserted in set-up, as
+the first write after the bulk build grows the id table and the matrix
+once; the window's inserts come after it.  ``latest_share`` (YCSB D's
+``requestdistribution=latest``) is the share of each batch's queries
+that are the newest rows acknowledged before its dispatch, newest
+first, each searched with its own row; the rest come from the query
+pool.  Each batch records the inserts acknowledged before its dispatch
+and before its ``finalize()`` returned, which the comparison holds it to
+(:mod:`hxbench.check`: a search returns every row acknowledged before
+its dispatch, and may return those acknowledged before its finalize; a
+latest query's own row is among its hits).  After the window the newest
+acknowledged rows, up to one batch, are searched once more and held to
+the same rule.  ``attempted`` and ``failed`` count the window's inserts
+beside its queries; ``qps`` and the latencies stay the searches'.
 
 ``entry: http`` — an open loop of single-query ``POST
 /v1/query/<route>`` requests at ``rate_per_s``: the window's arrival
@@ -25,6 +47,7 @@ import sys
 import threading
 import time
 from collections import deque
+from fractions import Fraction
 from pathlib import Path
 
 import numpy as np
@@ -33,6 +56,8 @@ from . import check, system
 
 CLIENT = Path(__file__).resolve().parent / "http_client.py"
 GRACE_S = 60.0
+# inserts a write mix makes in set-up, before the window
+SETUP_INSERTS = 1
 HTTP_WARM = 64
 
 
@@ -44,31 +69,105 @@ def percentile_ms(lat_s: list, q: float) -> float:
 
 
 class EngineLoop:
-    def __init__(self, part, mix: dict, corpus, seconds: float):
+    def __init__(self, part, mix: dict, corpus, seconds: float,
+                 min_batches: int = 0):
+        share = Fraction(str(mix.get("insert_share", 0)))
+        latest = Fraction(str(mix.get("latest_share", 0)))
+        if not 0 <= share < 1:
+            raise ValueError(f"insert_share {share} is not in [0, 1)")
+        if not 0 <= latest <= 1 or (latest and not share):
+            raise ValueError(f"latest_share {latest} needs an insert_share "
+                             "and is in [0, 1]")
         self.part = part
         self.mix = mix
         self.batch = int(mix["batch"])
         self.k = int(mix["k"])
         self.corpus = corpus
+        # a rehearsal on a loaded CPU keeps its window open until this many
+        # batches are answered (cells leave it 0)
+        self.min_batches = min_batches
         n_batches = math.ceil(float(mix["pool_qps"]) * seconds / self.batch)
         self.pool = corpus.queries(n_batches * self.batch)
+        # inserts per query dispatched: 1/19 for a 5% share
+        self.ratio = share / (1 - share)
+        # the slots of each batch that search the newest acknowledged rows
+        self.n_latest = int(latest * self.batch)
+        # element ids continue from the built rows' (row position + 1)
+        self.base = int(part.n_rows)
+        self.tried = 0
+        # insert-pool index of each acknowledged insert, in order: the
+        # i-th sits at row position base + i under id base + i + 1
+        self.acked: list[int] = []
+        self.inserts = None
+        if self.ratio:
+            self.inserts = corpus.inserts(
+                SETUP_INSERTS + math.ceil(len(self.pool) * self.ratio))
+            # set-up: the first write after the bulk build grows the id
+            # table and the matrix, once
+            for _ in range(SETUP_INSERTS):
+                self.part.add(self.base + self.tried + 1,
+                              self.inserts[self.tried])
+                self.acked.append(self.tried)
+                self.tried += 1
 
     def warm_batches(self) -> list[int]:
         return [self.batch]
+
+    def _insert_up_to(self, queries: int, spans) -> int:
+        """Insert until the window's inserts reach ``ratio`` times
+        ``queries``; each is one ``Partition.add`` timed as the span
+        ``engine.insert``.  Returns how many raised."""
+        want = SETUP_INSERTS + \
+            queries * self.ratio.numerator // self.ratio.denominator
+        failed = 0
+        while self.tried < want:
+            if self.tried >= len(self.inserts):
+                print(f"insert pool of {len(self.inserts)} doubled in the "
+                      "window: pool_qps is below the rate", file=sys.stderr)
+                self.inserts = np.concatenate(
+                    [self.inserts, self.corpus.inserts(len(self.inserts))])
+            row = self.inserts[self.tried]
+            self.tried += 1
+            try:
+                with spans.span("engine.insert"):
+                    self.part.add(self.base + len(self.acked) + 1, row)
+            except Exception as exc:  # noqa: BLE001 — a failed insert counts
+                print(f"insert {self.tried - 1} failed: {exc!r}",
+                      file=sys.stderr)
+                failed += 1
+                continue
+            self.acked.append(self.tried - 1)
+        return failed
+
+    def _latest(self, q: np.ndarray, seen: int):
+        """``(queries, own)`` of a batch: ``q`` with its last ``n_latest``
+        slots taken by the newest of the ``seen`` rows acknowledged before
+        its dispatch, newest first; ``own [batch]`` is the acknowledged
+        index of each slot's row, -1 where the pool's query stays."""
+        take = min(self.n_latest, seen)
+        own = np.full(self.batch, -1, np.int64)
+        if not take:
+            return q, own
+        own[self.batch - take:] = np.arange(seen - 1, seen - 1 - take, -1)
+        q = q.copy()
+        q[self.batch - take:] = self.inserts[
+            [self.acked[i] for i in own[self.batch - take:]]]
+        return q, own
 
     def window(self, seconds: float, spans) -> dict:
         part, b, k = self.part, self.batch, self.k
         in_flight = int(self.mix["in_flight"])
         pending: deque = deque()
         lat: list[float] = []
+        done: list[float] = []
         answered: list[tuple] = []
-        completed = failed = dispatched = 0
+        failed = dispatched = 0
         t0 = time.perf_counter()
         t_end = t0 + seconds
 
         def finish() -> None:
-            nonlocal completed, failed
-            t_s, j, fin = pending.popleft()
+            nonlocal failed
+            t_s, j, fin, seen, own = pending.popleft()
             try:
                 with spans.span("engine.finalize"):
                     ids, dists = fin()
@@ -78,9 +177,8 @@ class EngineLoop:
                 return
             t_done = time.perf_counter()
             lat.append(t_done - t_s)
-            answered.append((j, ids, dists))
-            if t_done <= t_end:
-                completed += b
+            done.append(t_done)
+            answered.append((j, ids, dists, seen, len(self.acked), own))
 
         while time.perf_counter() < t_end:
             if (dispatched + 1) * b > len(self.pool):
@@ -91,6 +189,10 @@ class EngineLoop:
                 self.pool = np.concatenate(
                     [self.pool, self.corpus.queries(len(self.pool))])
             q = self.pool[dispatched * b:(dispatched + 1) * b]
+            seen = len(self.acked)
+            own = None
+            if self.n_latest:
+                q, own = self._latest(q, seen)
             t_s = time.perf_counter()
             try:
                 with spans.span("engine.dispatch"):
@@ -98,42 +200,117 @@ class EngineLoop:
             except Exception as exc:  # noqa: BLE001 — a failed batch counts
                 print(f"batch {dispatched} failed: {exc!r}", file=sys.stderr)
                 failed += b
-                dispatched += 1
-                continue
-            pending.append((t_s, dispatched, fin))
+                fin = None
+            if fin is not None:
+                pending.append((t_s, dispatched, fin, seen, own))
             dispatched += 1
+            if self.ratio:
+                failed += self._insert_up_to(dispatched * b, spans)
             if len(pending) >= in_flight:
                 finish()
         while pending:
             finish()
+        window_s = seconds
+        m = self.min_batches
+        if 0 < m <= len(done) and done[m - 1] > t_end:
+            # a rehearsal on a loaded CPU: the window closes at its first
+            # answers
+            t_end = done[m - 1]
+            window_s = t_end - t0
+        completed = b * sum(t <= t_end for t in done)
         spans.record.count("batches", dispatched)
         spans.record.count("queries", dispatched * b)
+        inserts = 0
+        if self.ratio:
+            inserts = self.tried - SETUP_INSERTS
+            acked = len(self.acked) - SETUP_INSERTS
+            spans.record.count("inserts", acked)
+            print(f"hxbench: inserts {acked} acknowledged of {inserts} in "
+                  f"the window, {SETUP_INSERTS} in set-up", file=sys.stderr)
         return {
-            "attempted": dispatched * b,
+            "attempted": dispatched * b + inserts,
             "failed": failed,
-            "e2e": {"qps": completed / seconds,
+            "e2e": {"qps": completed / window_s,
                     "p50_ms": percentile_ms(lat, 50),
                     "p95_ms": percentile_ms(lat, 95)},
             "answered": answered,
         }
 
+    def _writes(self, seen, acked, own) -> dict:
+        return {"inserts": self.inserts[self.acked], "seen": seen,
+                "acked": acked, "own": own}
+
     def sample(self, result: dict, size: int, seed: int):
-        """``(queries, ids, dists)`` of a sample of the answered queries."""
+        """``(queries, ids, dists, writes)`` of a sample of the answered
+        queries; ``writes`` is ``None`` without inserts, else the
+        acknowledged rows (``inserts``, in order) and, for each sampled
+        answer, how many of them were acknowledged before its batch's
+        dispatch (``seen``) and before its ``finalize()`` returned
+        (``acked``), and the acknowledged index of the row it searched
+        with (``own``, -1 for a query of the pool)."""
         answered = result["answered"]
         if not answered:
             return None
         rows = np.concatenate([
-            np.arange(j * self.batch, (j + 1) * self.batch)
-            for j, _, _ in answered])
+            np.arange(a[0] * self.batch, (a[0] + 1) * self.batch)
+            for a in answered])
         pick = check.sample(len(rows), size, seed)
-        width = max(ids.shape[1] for _, ids, _ in answered)
-        ids = np.concatenate([_pad(a, width, 0) for _, a, _ in answered])
-        dists = np.concatenate([_pad(d, width, np.nan)
-                                for _, _, d in answered])
-        return self.pool[rows[pick]], ids[pick], dists[pick]
+        width = max(a[1].shape[1] for a in answered)
+        ids = np.concatenate([_pad(a[1], width, 0) for a in answered])
+        dists = np.concatenate([_pad(a[2], width, np.nan) for a in answered])
+        queries = self.pool[rows[pick]]
+        if not self.ratio:
+            return queries, ids[pick], dists[pick], None
+        counts = np.repeat([a[3:5] for a in answered], self.batch, axis=0)
+        own = np.concatenate([
+            np.full(self.batch, -1, np.int64) if a[5] is None else a[5]
+            for a in answered])[pick]
+        latest = own >= 0
+        queries[latest] = self.inserts[np.asarray(self.acked)[own[latest]]]
+        return queries, ids[pick], dists[pick], self._writes(
+            counts[pick, 0], counts[pick, 1], own)
+
+    def read_back(self):
+        """The answers, in :meth:`sample`'s form, of one search after the
+        window whose queries are the newest acknowledged rows (up to one
+        batch), each its own; every acknowledged row is visible to it.
+        ``None`` without inserts.  A search that raises returns no
+        hits."""
+        if not self.ratio:
+            return None
+        n = len(self.acked)
+        newest = np.arange(max(0, n - self.batch), n)
+        queries = self.inserts[np.asarray(self.acked, np.int64)[newest]]
+        try:
+            ids, dists = self.part.search_many(queries, self.k)
+        except Exception as exc:  # noqa: BLE001 — an unread write counts
+            print(f"read-back failed: {exc!r}", file=sys.stderr)
+            ids = np.zeros((len(newest), 0), np.int64)
+            dists = np.zeros((len(newest), 0))
+        every = np.full(len(newest), n)
+        return queries, ids, dists, self._writes(every, every, newest)
 
     def close(self) -> None:
         pass
+
+
+def joined(answers, back):
+    """The sampled answers followed by the read-back's, as one set of
+    answers in :meth:`EngineLoop.sample`'s form; either may be ``None``."""
+    if answers is None:
+        return back
+    if back is None:
+        return answers
+    width = max(answers[1].shape[1], back[1].shape[1])
+    writes = {key: np.concatenate([answers[3][key], back[3][key]])
+              for key in ("seen", "acked", "own")}
+    writes["inserts"] = back[3]["inserts"]
+    return (np.concatenate([answers[0], back[0]]),
+            np.concatenate([_pad(answers[1], width, 0),
+                            _pad(back[1], width, 0)]),
+            np.concatenate([_pad(answers[2], width, np.nan),
+                            _pad(back[2], width, np.nan)]),
+            writes)
 
 
 def _pad(a: np.ndarray, width: int, fill) -> np.ndarray:
@@ -192,6 +369,9 @@ class HttpLoop:
             raise ValueError("an http cell's rate_per_s goes in "
                              "cells/<workload>.json, found by a sweep "
                              "(hxbench.sweep)")
+        if mix.get("insert_share"):
+            raise ValueError("insert_share is a parameter of the engine "
+                             "entry alone")
         n = int(round(float(mix["rate_per_s"]) * seconds))
         rng = np.random.default_rng([seed % (1 << 64), 6])
         self.due = np.sort(rng.uniform(0.0, seconds, n))
@@ -313,7 +493,10 @@ class HttpLoop:
             for j, hit in enumerate(hits):
                 ids[r, j] = int(hit["$id"])
                 dists[r, j] = float(hit["$distance"])
-        return self.pool[idx], ids, dists
+        return self.pool[idx], ids, dists, None
+
+    def read_back(self):
+        return None
 
     def close(self) -> None:
         for proc in self.procs:

@@ -5,9 +5,10 @@
 
 Set-up (the rows made on the card from the seed, the engine filled
 through ``Partition.add_bulk``, the harness's own copy of the rows
-dropped, the cell's shapes warmed, for HTTP cells the gateway and its
-clients started) is timed from the process's start as ``setup_s``; then
-the window runs for ``--seconds``.  Before the window, standard error
+dropped, the query pool and, for a write mix, the rows to insert drawn,
+the cell's shapes warmed, for HTTP cells the gateway and its clients
+started) is timed from the process's start as ``setup_s``; then the
+window runs for ``--seconds``.  Before the window, standard error
 names the rung of the residency ladder that serves
 (``hxbench: rung <name>``) and the process's resident set
 (``hxbench: rss_bytes <n>``).  With ``--trace 1`` the window runs under
@@ -16,9 +17,12 @@ instead of its end-to-end ones.  Once the window has closed and the
 device's peak memory is read, the program is freed, the rows are made
 again from the seed (bit-equal: the rows' stream and the centres depend
 on the seed alone) and a sample of the answers is compared with the
-plain reference (:mod:`hxbench.check`).  The last line of standard
-output is the result; the numbers compared, each beside its limit, are
-the last lines of standard error and the last key of the result.
+plain reference (:mod:`hxbench.check`).  Under a write mix the newest
+acknowledged inserts are searched once more before the program is
+freed, and those answers are compared with the sample's.  The last line
+of standard output is the result; the numbers compared, each beside its
+limit, are the last lines of standard error and the last key of the
+result.
 
 Exits 2 without printing a result where there is no card or fewer cards
 than the cell asks for, and 3 where a module of ``jax``, ``jaxlib``,
@@ -83,8 +87,10 @@ def device_info(device: torch.device) -> dict:
 
 def run_cell(bench: dict, cell: dict, config: dict, mix: dict, seed: int,
              seconds: float, trace: bool, device: torch.device,
-             age=process_age_s) -> dict:
-    """One run of one cell; returns the result object."""
+             age=process_age_s, min_batches: int = 0) -> dict:
+    """One run of one cell; returns the result object.  ``min_batches``
+    (rehearsals on a loaded CPU) keeps an engine window open until that
+    many batches are answered."""
     from . import system
 
     record = Record(cell=cell, config=config, traffic=mix)
@@ -95,7 +101,7 @@ def run_cell(bench: dict, cell: dict, config: dict, mix: dict, seed: int,
     # makes them again after the window
     engine, part = system.build(config, corpus.rows(n_rows), device)
     if mix["entry"] == "engine":
-        loop = loops.EngineLoop(part, mix, corpus, seconds)
+        loop = loops.EngineLoop(part, mix, corpus, seconds, min_batches)
     elif mix["entry"] == "http":
         loop = loops.HttpLoop(engine, part, mix, config, corpus, seconds,
                               seed)
@@ -116,7 +122,8 @@ def run_cell(bench: dict, cell: dict, config: dict, mix: dict, seed: int,
         if mix["entry"] == "http":
             result.update(loop.collect(result, spans))
         record.trace = out.get("trace")
-        answers = loop.sample(result, check.SAMPLE, seed)
+        answers = loops.joined(loop.sample(result, check.SAMPLE, seed),
+                               loop.read_back())
     finally:
         loop.close()
     del engine, part, loop
@@ -124,14 +131,15 @@ def run_cell(bench: dict, cell: dict, config: dict, mix: dict, seed: int,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    limit = check.limits(config)
+    limit = check.limits(config, writes=answers is not None and
+                         answers[3] is not None)
     if answers is None:
         found = {"bad_answers": 1, "dist_err": float("inf"),
                  "recall_miss": 1.0}
     else:
         rows = Corpus(config["generator"], dim, seed, device).rows(n_rows)
         found = check.numbers(answers[1], answers[2], answers[0], rows,
-                              config, device)
+                              config, device, writes=answers[3])
     found["failed"] = result["failed"]
     correct, checked = check.verdict(found, limit)
 
